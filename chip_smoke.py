@@ -4,10 +4,18 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of `scgaussian_tpu_torch` from the sources in this
-checkout, holds each against its plain PyTorch version on the card, drives
-the serving path (model saved to PLY -> `load_ply` -> `render_model` for 5
-views at 1920x1080, 100k Gaussians, SH degree 3), and times the kernel, the
-binning and whole renders with CUDA events.
+checkout (one nvcc per source, started together), holds each against its
+plain PyTorch version on the card, then drives the port's two paths:
+
+- serving: model saved to PLY -> `load_ply` -> `render_model` for 5 views
+  at 1920x1080, 100k Gaussians, SH degree 3, under `torch.no_grad()`;
+- training: 6 main-stage `train_step`s at 1920x1080 on the same hybrid
+  model (106,384 slots), cycling through 3 views with a `MatchBundle` of
+  6 ordered pairs x 15,000 matches, against ground truth rendered from
+  the model with its depths perturbed.
+
+It times the kernels, the stages and whole renders and steps with CUDA
+events, the host clock and the profiler.
 
 Output: one JSON line per phase; then the card's `nvidia-smi` name and
 power limit, the kernel table as one JSON line, and last
@@ -26,28 +34,47 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from scgaussian_tpu_torch.config import RasterizerConfig
+from scgaussian_tpu_torch.config import OptimizationConfig, RasterizerConfig, TrainExtras
 from scgaussian_tpu_torch.core.cameras import Camera
-from scgaussian_tpu_torch.model.gaussians import model_from_numpy
+from scgaussian_tpu_torch.losses import l1_loss, ssim
+from scgaussian_tpu_torch.model.densify import update_stats
+from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, model_from_numpy
 from scgaussian_tpu_torch.model.io import load_ply, save_ply
+from scgaussian_tpu_torch.model.matches import build_match_bundle, matchloss_from_renderdepth
 from scgaussian_tpu_torch.renderer import _build, raster
 from scgaussian_tpu_torch.renderer.api import render
 from scgaussian_tpu_torch.renderer.binning import bin_gaussians
 from scgaussian_tpu_torch.renderer.oracle import composite_dense
 from scgaussian_tpu_torch.renderer.project import project
-from scgaussian_tpu_torch.train.main_stage import render_model
+from scgaussian_tpu_torch.train import optim
+from scgaussian_tpu_torch.train.main_stage import (
+    apply_update, make_camera_loss, render_model, train_step,
+)
 
 REPS = 5  # timed repeats after one warm-up
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_PAIR = 16  # ~15 fp32 operations + 1 expf per (pixel, entry) pair evaluated
+# backward, per (pixel, entry) pair up to the pixel's last contributor, counted
+# from csrc/raster_bwd.cu: 11 for power, 1 expf, 2 alpha, 1 + 1 for 1 - alpha
+# and T, 1 w, 7 color/depth dot, 3 d_alpha, 2 tail, 1 d_power, 1 d_opacity,
+# 10 mean2d, 9 conic, 4 rgb/depth; plus 10 adds to sum the terms per entry
+OPS_PER_PAIR_BWD = 64
 ALPHA_T_MAX = 1e-5  # kernel vs plain: alpha and final T (they agree bitwise when right)
+# backward kernel vs plain: max abs error per column group <= this * max|g|.
+# The per-pixel arithmetic is the same; atomics change the order of the sums
+# from run to run (measured: <= 4e-7 * max|g| at 1080p).
+BWD_REL_MAX = 1e-5
+AUTOGRAD_REL_MAX = 5e-4  # plain backward vs autograd (tests/test_tile_raster.py:81-109)
+GRAD_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "opacity": (5, 6), "rgb": (6, 9),
+               "depth": (9, 10)}
 
 # (width, height, Gaussians) of the JAX package's bench scenes (bench.py)
 PARITY = (256, 160, 1500)  # bench.py:55, the parity-gate scene
@@ -55,7 +82,11 @@ FULL = (1920, 1080, 100_000)  # bench.py:170-171
 DENSE = (3840, 2160, 500_000)  # bench.py:167-168
 HYBRID = (90_000, 10_000, 16_384)  # main path: ray, alive bg, bg capacity
 VIEWS = 5
+TRAIN_VIEWS = 3  # the LLFF few-shot protocol: 3 views, 6 ordered pairs
+MATCHES = 15_000  # per ordered pair
+TRAIN_STEPS = 6
 DEVICE = "cuda"
+KERNELS = ("raster_fwd", "raster_bwd")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -76,20 +107,35 @@ def nvidia_smi(query: str) -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_times(fn, reps: int = REPS) -> dict:
-    """Median/min/max milliseconds of `fn()` over `reps` runs after one
-    warm-up, each between two CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(reps):
+def cuda_times(fn, reps: int = REPS, setup=None) -> dict:
+    """Median/min/max milliseconds of `fn(setup())` (or `fn()` without a
+    setup) over `reps` runs after one warm-up, each between two CUDA events;
+    the setup runs outside them."""
+    def once():
+        arg = setup() if setup is not None else None
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(arg) if setup is not None else fn()
         end.record()
         end.synchronize()
-        ms.append(start.elapsed_time(end))
+        return start.elapsed_time(end)
+
+    once()
+    ms = [once() for _ in range(reps)]
+    return {"median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
+            "reps": reps}
+
+
+def host_times(fn, reps: int = REPS) -> dict:
+    """Host-clock milliseconds of `fn()` ending in a synchronize."""
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
     return {"median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
             "reps": reps}
 
@@ -290,37 +336,131 @@ def kernel_bound_ms(bins, attrs, W, H, pairs) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def random_cotangents(W: int, H: int, seed: int, device) -> list:
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=shape).astype(np.float32), device=device)
+            for shape in ((3, H, W), (H, W), (H, W))]
+
+
+def group_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Per column group of d_attrs: max abs error and max |want|."""
+    return {name: {"max_abs_err": float((got[:, lo:hi] - want[:, lo:hi]).abs().max()),
+                   "max_abs_g": float(want[:, lo:hi].abs().max())}
+            for name, (lo, hi) in GRAD_GROUPS.items()}
+
+
+def check_groups(name: str, errs: dict, rel: float) -> None:
+    for group, e in errs.items():
+        check(e["max_abs_err"] <= rel * e["max_abs_g"],
+              f"{name} {group}: max err {e['max_abs_err']} > {rel} * {e['max_abs_g']}")
+
+
+def compare_backward(name, cmp: dict, W, H, autograd: bool = False) -> dict:
+    """Backward kernel vs plain version on the forward comparison's bins,
+    with random cotangents; with `autograd`, also the plain version vs
+    autograd of raster_fwd_plain. Raises past the limits."""
+    bins, attrs, bg = cmp["bins"], cmp["attrs"], cmp["bg"]
+    before = dict(raster.LAUNCHES)
+    with torch.no_grad():
+        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
+    cots = random_cotangents(W, H, 1, attrs.device)
+    k = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
+    p = raster.raster_bwd_plain(bins, attrs, bg, T, last, *cots, W, H)
+    torch.cuda.synchronize()
+    raster.LAUNCHES.update(before)  # comparison launches do not count
+    check(bool(torch.isfinite(k).all()), f"{name}: backward kernel gradients not finite")
+    check(float(k[:, 10:].abs().max()) == 0.0, f"{name}: padding columns not zero")
+    errs = group_errors(k, p)
+    out = {"kernel_vs_plain": errs}
+    if autograd:
+        a = attrs.detach().requires_grad_()
+        with torch.enable_grad():
+            color, depth, alpha, _, _ = raster.raster_fwd_plain(bins, a, bg, W, H)
+            loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
+            (want,) = torch.autograd.grad(loss, a)
+        out["plain_vs_autograd"] = group_errors(p, want)
+    pairs = int(last.sum())
+    emit("backward_vs_plain", scene=name, width=W, height=H, entries=bins.num_entries,
+         pairs=pairs, **out)
+    check_groups(f"{name} kernel vs plain", errs, BWD_REL_MAX)
+    if autograd:
+        check_groups(f"{name} plain vs autograd", out["plain_vs_autograd"], AUTOGRAD_REL_MAX)
+    return dict(T=T, last=last, cots=cots, pairs=pairs,
+                max_abs_err=max(e["max_abs_err"] for e in errs.values()))
+
+
+def kernel_bound_ms_bwd(bins, attrs, W, H, pairs) -> tuple:
+    """Least time for the backward kernel's work on an H100 SXM: every input
+    read once (tile starts, entry ids, attribute rows, bg; per pixel final
+    T, last contributor and 5 cotangents), the [N, 12] gradient rows written
+    once, or the fp32 operations of the pairs up to each pixel's last
+    contributor, whichever is longer."""
+    bytes_moved = (
+        bins.tile_starts.numel() * 4 + bins.gauss_ids.numel() * 4
+        + attrs.numel() * 4 + 3 * 4 + W * H * 7 * 4 + attrs.numel() * 4
+    )
+    t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = pairs * OPS_PER_PAIR_BWD / H100_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------- training scene ----------------
+
+def match_bundle_for(gt_model, cams, seed: int):
+    """Ground truth images (renders of `gt_model`, clipped to [0, 1]) and a
+    MatchBundle over every ordered pair of `cams`: MATCHES matches per pair,
+    placed where ray Gaussians of `gt_model` project inside both views.
+    Returns (bundle, gt images [3, H, W] each)."""
+    rng = np.random.default_rng(seed)
+    W, H = cams[0].width, cams[0].height
+    with torch.no_grad():
+        gts = [torch.clamp(render_model(c, gt_model, torch.zeros(3, device=c.device)).render,
+                           0.0, 1.0) for c in cams]
+        norm = []
+        for c in cams:
+            proj = project_model(c, gt_model)
+            uv = (proj.mean2d[: gt_model.num_ray] / torch.tensor([W, H], device=c.device))
+            ok = proj.valid[: gt_model.num_ray] & ((uv > 0.02) & (uv < 0.98)).all(1)
+            norm.append((uv.cpu().numpy(), ok.cpu().numpy()))
+    pixels = {}
+    for i in range(len(cams)):
+        for j in range(i + 1, len(cams)):
+            both = np.flatnonzero(norm[i][1] & norm[j][1])
+            check(both.size >= MATCHES, f"only {both.size} ray Gaussians seen by views {i}, {j}")
+            pick = rng.choice(both, MATCHES, replace=False)
+            pixels[(i, j)] = norm[i][0][pick].astype(np.float32)
+            pixels[(j, i)] = norm[j][0][pick].astype(np.float32)
+    images = [g.permute(1, 2, 0).cpu().numpy() for g in gts]
+    bundle = build_match_bundle(
+        images, [c.K.cpu().numpy() for c in cams], [c.world_view.cpu().numpy() for c in cams],
+        [np.array([1.0, 25.0], np.float32)] * len(cams), pixels, device=cams[0].device,
+    )
+    return bundle, gts
+
+
 # ---------------- phases ----------------
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    root = os.path.dirname(os.path.abspath(__file__))
-
-    dev = torch.device(DEVICE)
-    torch.set_grad_enabled(False)  # serving: the CUDA rasterizer has no backward yet
-
-    # 1. device
-    card = nvidia_smi("name,power.limit")
-    print(card, flush=True)
-    emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
-
-    # 2. build every kernel from the checkout's sources
+def build_kernels(root: str) -> None:
+    """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    lib_path = _build.build("raster_fwd")
-    build_s = time.perf_counter() - t0
-    ptxas = lib_path.with_suffix(".log").read_text().strip().splitlines()
-    emit("build", kernel="raster_fwd", seconds=build_s, library=os.path.relpath(lib_path, root),
-         ptxas=[ln for ln in ptxas if "registers" in ln or "spill" in ln])
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    seconds = time.perf_counter() - t0
+    for name, lib_path in libs.items():
+        ptxas = lib_path.with_suffix(".log").read_text().strip().splitlines()
+        emit("build", kernel=name, seconds=seconds, library=os.path.relpath(lib_path, root),
+             ptxas=[ln for ln in ptxas if "registers" in ln or "spill" in ln])
 
-    # 3. kernel vs plain on the same bins; tile path vs the dense oracle
+
+def serving_phases(dev, root) -> dict:
+    """Kernel-vs-plain checks of both kernels, the tile path vs the dense
+    oracle, and the serving main path (5 views from a PLY-loaded model)."""
     W, H, _ = PARITY
     parity = bench_scene(*PARITY, 42, (-5.0, -3.5))
     cam_p = bench_camera(W, H, dev)
     proj_p = project_scene(cam_p, parity, dev)
-    compare_kernel("parity", proj_p, W, H, img_max=1e-3, depth_max=1e-2)
+    parity_cmp = compare_kernel("parity", proj_p, W, H, img_max=1e-3, depth_max=1e-2)
+    compare_backward("parity", parity_cmp, W, H, autograd=True)
     bg0 = torch.zeros(3, device=dev)
     t = {k: torch.tensor(v, device=dev) for k, v in parity.items()}
     tile_out = render(cam_p, t["means"], t["opac"], bg0, scales=t["scales"],
@@ -343,7 +483,7 @@ def main() -> int:
     bench_cmp = compare_kernel("bench_full", proj_1080, W1, H1,
                                img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
 
-    # 4. main path: hybrid model -> PLY -> load_ply -> render_model x 5 views
+    # main path: hybrid model -> PLY -> load_ply -> render_model x 5 views
     num_ray, num_bg, capacity = HYBRID
     leaves = hybrid_leaves(num_ray, num_bg, capacity, seed=7)
     src_model = model_from_numpy(leaves, 3, device=dev)
@@ -370,87 +510,269 @@ def main() -> int:
         alpha = out.rendered_alpha
         check(bool((alpha >= 0).all() and (alpha <= 1).all()), f"view {i}: alpha outside [0, 1]")
         check(float(alpha.mean()) > 0.05, f"view {i}: almost nothing rendered")
-    for kernel, count in launches.items():
-        check(count == VIEWS, f"{kernel} launched {count} times for {VIEWS} views")
+    check(launches == {"raster_fwd": VIEWS, "raster_bwd": 0},
+          f"serving launched {launches} for {VIEWS} views")
     emit("main_path", views=len(outs), width=W1, height=H1, gaussians=model.total,
          alive=model.num_ray + int(model.bg_alive.sum()), launches=launches,
          mean_alpha=[float(o.rendered_alpha.mean()) for o in outs],
          visible=[int(o.visibility_filter.sum()) for o in outs])
 
-    # the kernel at the main path's shapes (view 0), against its plain version
+    # both kernels at the main path's shapes (view 0), against their plain versions
     proj_main = project_model(cams[0], model)
     main_cmp = compare_kernel("main_path_view0", proj_main, W1, H1,
                               img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
+    main_bwd = compare_backward("main_path_view0", main_cmp, W1, H1)
 
-    # 5. timing (CUDA events, median of REPS after a warm-up)
+    # forward kernel timing (CUDA events, median of REPS after a warm-up)
     bins, attrs, kbg = main_cmp["bins"], main_cmp["attrs"], main_cmp["bg"]
-    main_err = main_cmp["err"]
     kernel_t = cuda_times(lambda: raster.raster_fwd(bins, attrs, kbg, W1, H1))
     plain_t = cuda_times(lambda: raster.raster_fwd_plain(bins, attrs, kbg, W1, H1))
     bbins, battrs, bbg = bench_cmp["bins"], bench_cmp["attrs"], bench_cmp["bg"]
     bench_kernel_t = cuda_times(lambda: raster.raster_fwd(bbins, battrs, bbg, W1, H1))
     bench_plain_t = cuda_times(lambda: raster.raster_fwd_plain(bbins, battrs, bbg, W1, H1))
-    raster.LAUNCHES["raster_fwd"] = launches["raster_fwd"]
     bound, bound_by = kernel_bound_ms(bins, attrs, W1, H1, main_cmp["pairs"])
     bench_bound, bench_bound_by = kernel_bound_ms(bbins, battrs, W1, H1, bench_cmp["pairs"])
-    emit("kernel_time", scene="main_path_view0", kernel=kernel_t, plain=plain_t,
-         bound_ms=bound, bound_by=bound_by, entries=bins.num_entries, pairs=main_cmp["pairs"])
-    emit("kernel_time", scene="bench_full", kernel=bench_kernel_t,
+    emit("kernel_time", kernel="raster_fwd", scene="main_path_view0", kernel_ms=kernel_t,
+         plain=plain_t, bound_ms=bound, bound_by=bound_by, entries=bins.num_entries,
+         pairs=main_cmp["pairs"])
+    emit("kernel_time", kernel="raster_fwd", scene="bench_full", kernel_ms=bench_kernel_t,
          plain=bench_plain_t, bound_ms=bench_bound, bound_by=bench_bound_by,
          entries=bbins.num_entries, pairs=bench_cmp["pairs"])
 
-    def breakdown(name, cam, mdl):
-        W_, H_ = cam.width, cam.height
-        proj = project_model(cam, mdl)
-        b = bin_gaussians(proj, W_, H_)
-        a = raster.pack_attrs(proj)
-        before = raster.LAUNCHES["raster_fwd"]
-        stages = {
-            "project": cuda_times(lambda: project_model(cam, mdl)),
-            "bin": cuda_times(lambda: bin_gaussians(proj, W_, H_)),
-            "pack_attrs": cuda_times(lambda: raster.pack_attrs(proj)),
-            "kernel": cuda_times(lambda: raster.raster_fwd(b, a, bg, W_, H_)),
-            "render_model": cuda_times(lambda: render_model(cam, mdl, bg)),
-        }
-        host = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            render_model(cam, mdl, bg)
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t0) * 1e3)
-        busy = device_busy(lambda: render_model(cam, mdl, bg))
-        raster.LAUNCHES["raster_fwd"] = before  # timing launches do not count
-        host_ms = statistics.median(host)
-        emit("render_time", scene=name, width=W_, height=H_, gaussians=mdl.total,
-             entries=b.num_entries, stages=stages,
-             render_model_host_ms={"median_ms": host_ms, "min_ms": min(host), "max_ms": max(host)},
-             device=busy, device_idle_share=max(0.0, 1.0 - busy["busy_ms"] / host_ms),
-             peak_mem_bytes=torch.cuda.max_memory_allocated())
+    # backward kernel timing on the same bins with the comparison's cotangents
+    T, last, cots = main_bwd["T"], main_bwd["last"], main_bwd["cots"]
+    bwd_t = cuda_times(lambda: raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W1, H1))
+    bwd_plain_t = cuda_times(
+        lambda: raster.raster_bwd_plain(bins, attrs, kbg, T, last, *cots, W1, H1))
+    bwd_bound, bwd_bound_by = kernel_bound_ms_bwd(bins, attrs, W1, H1, main_bwd["pairs"])
+    emit("kernel_time", kernel="raster_bwd", scene="main_path_view0", kernel_ms=bwd_t,
+         plain=bwd_plain_t, bound_ms=bwd_bound, bound_by=bwd_bound_by,
+         entries=bins.num_entries, pairs=main_bwd["pairs"])
+    raster.LAUNCHES.update(launches)  # timing launches do not count
 
-    breakdown("main_path_hybrid", cams[0], model)
-    del outs, model, src_model, proj_main, main_cmp, bench_cmp, bins, attrs, bbins, battrs
+    render_breakdown("main_path_hybrid", cams[0], model, bg)
+    return {
+        "serving_launches": launches,
+        "raster_fwd": dict(max_abs_err=max(main_cmp["err"][f"{k}_max_abs_err"]
+                                           for k in ("image", "depth", "alpha", "T")),
+                           ms=kernel_t["median_ms"], plain_ms=plain_t["median_ms"],
+                           bound_ms=bound, bound_by=bound_by),
+        "raster_bwd": dict(max_abs_err=main_bwd["max_abs_err"], ms=bwd_t["median_ms"],
+                           plain_ms=bwd_plain_t["median_ms"], bound_ms=bwd_bound,
+                           bound_by=bwd_bound_by),
+    }
+
+
+def render_breakdown(name, cam, mdl, bg) -> None:
+    W_, H_ = cam.width, cam.height
+    before = dict(raster.LAUNCHES)
+    proj = project_model(cam, mdl)
+    b = bin_gaussians(proj, W_, H_)
+    a = raster.pack_attrs(proj)
+    stages = {
+        "project": cuda_times(lambda: project_model(cam, mdl)),
+        "bin": cuda_times(lambda: bin_gaussians(proj, W_, H_)),
+        "pack_attrs": cuda_times(lambda: raster.pack_attrs(proj)),
+        "kernel": cuda_times(lambda: raster.raster_fwd(b, a, bg, W_, H_)),
+        "render_model": cuda_times(lambda: render_model(cam, mdl, bg)),
+    }
+    host = host_times(lambda: render_model(cam, mdl, bg))
+    busy = device_busy(lambda: render_model(cam, mdl, bg))
+    raster.LAUNCHES.update(before)  # timing launches do not count
+    emit("render_time", scene=name, width=W_, height=H_, gaussians=mdl.total,
+         entries=b.num_entries, stages=stages, render_model_host_ms=host,
+         device=busy, device_idle_share=max(0.0, 1.0 - busy["busy_ms"] / host["median_ms"]),
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def training_phase(dev) -> dict:
+    """The training main path: TRAIN_STEPS train_steps at 1080p on the
+    hybrid model, cycling through TRAIN_VIEWS views. Raises on any failed
+    check; returns the launches of the counted run."""
+    W1, H1, _ = FULL
+    num_ray, num_bg, capacity = HYBRID
+    leaves = hybrid_leaves(num_ray, num_bg, capacity, seed=7)
+    rng = np.random.default_rng(8)
+    gt_leaves = dict(leaves, zval=(leaves["zval"] * (1.0 + 0.05 * rng.uniform(
+        -1.0, 1.0, leaves["zval"].shape))).astype(np.float32))
+    model = model_from_numpy(leaves, 3, device=dev)
+    gt_model = model_from_numpy(gt_leaves, 3, device=dev)
+    cams = view_cameras(W1, H1, TRAIN_VIEWS, dev)
+    bundle, gts = match_bundle_for(gt_model, cams, seed=9)
+    del gt_model
+    check(bundle.num_pairs == TRAIN_VIEWS * (TRAIN_VIEWS - 1)
+          and bundle.matches_per_pair == MATCHES, "match bundle shape")
+    bg = torch.zeros(3, device=dev)
+    cfg, extras = OptimizationConfig(), TrainExtras()
+
+    def view_loss(v):
+        fn = make_camera_loss(model, bundle, cams[v], gts[v], v, bg, cfg, RasterizerConfig(),
+                              extras, "cuda", False)
+        with torch.no_grad():
+            return float(fn(torch.zeros(model.total, 2, device=dev))[0])
+
+    loss_before = view_loss(0)
+    params_before = {n: getattr(model, n).detach().clone() for n in PARAM_NAMES}
+    state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
+    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    metrics = []
+    for it in range(1, TRAIN_STEPS + 1):
+        v = (it - 1) % TRAIN_VIEWS
+        model, state, m = train_step(model, state, bundle, cams[v], gts[v], v, it, bg, cfg)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = dict(raster.LAUNCHES)
+    loss_after = view_loss(0)
+
+    check(launches == {"raster_fwd": TRAIN_STEPS, "raster_bwd": TRAIN_STEPS},
+          f"training launched {launches} in {TRAIN_STEPS} steps")
+    for it, m in enumerate(metrics, 1):
+        for key in ("loss", "l1", "match_loss"):
+            check(bool(torch.isfinite(getattr(m, key))), f"step {it}: {key} not finite")
+    check(state.count == TRAIN_STEPS, f"Adam count {state.count}")
+    changed = {}
+    for n in PARAM_NAMES:
+        check(bool(torch.isfinite(state.m[n]).all() and torch.isfinite(state.v[n]).all()),
+              f"{n}: a gradient was not finite")
+        moved = not torch.equal(getattr(model, n).detach(), params_before[n])
+        has_grad = float(state.m[n].abs().max()) > 0
+        changed[n] = moved
+        check(moved or not has_grad, f"{n} has a gradient and did not change")
+    visible = sum(int(m.num_visible) for m in metrics)
+    check(float(model.denom.sum()) == visible and visible > 0,
+          f"denom grew by {float(model.denom.sum())}, {visible} visible")
+    check(loss_after < loss_before, f"view-0 loss {loss_before} -> {loss_after}")
+    emit("train_path", steps=TRAIN_STEPS, width=W1, height=H1, gaussians=model.total,
+         views=TRAIN_VIEWS, pairs=bundle.num_pairs, matches_per_pair=MATCHES,
+         launches=launches, adam_count=state.count,
+         loss=[float(m.loss) for m in metrics], l1=[float(m.l1) for m in metrics],
+         match_loss=[float(m.match_loss) for m in metrics],
+         num_visible=[int(m.num_visible) for m in metrics],
+         view0_loss_before=loss_before, view0_loss_after=loss_after,
+         leaves_changed=changed, xyz_gradient_accum_sum=float(model.xyz_gradient_accum.sum()))
+
+    train_breakdown(model, state, bundle, cams[0], gts[0], bg, cfg, extras)
+    raster.LAUNCHES.update(launches)  # timing launches do not count
+    return launches
+
+
+def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras) -> None:
+    """Stage times of one training step on view 0 (CUDA events), the whole
+    step by events and host clock, the device's busy time per step from the
+    profiler, and peak memory. Keeps stepping the model (iterations from
+    100 on)."""
+    W, H = cam.width, cam.height
+    torch.cuda.reset_peak_memory_stats()
+    dev = bg.device
+    leaves = [getattr(model, n) for n in PARAM_NAMES]
+    loss_fn = make_camera_loss(model, bundle, cam, gt, 0, bg, cfg, RasterizerConfig(),
+                               extras, "cuda", False)
+
+    def offset():
+        return torch.zeros(model.total, 2, device=dev, requires_grad=True)
+
+    with torch.no_grad():
+        proj = project_model(cam, model)
+        bins = bin_gaussians(proj, W, H)
+        attrs = raster.pack_attrs(proj)
+        out = render_model(cam, model, bg)
+    render_img = out.render.detach().requires_grad_()
+    depth_img = out.rendered_depth.detach().requires_grad_()
+
+    def loss_only(img, dep):
+        ll1 = l1_loss(img, gt)
+        loss = (1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * (1.0 - ssim(img, gt))
+        return loss + extras.render_match_loss_weight * matchloss_from_renderdepth(bundle, 0, dep)
+
+    def graph():
+        off = offset()
+        return loss_fn(off)[0], off
+
+    def backward(arg):
+        loss, off = arg
+        return torch.autograd.grad(loss, leaves + [off], allow_unused=True)
+
+    g_all = backward(graph())
+    grads = dict(zip(PARAM_NAMES, g_all[:-1]))
+    with torch.no_grad():
+        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
+    cots = random_cotangents(W, H, 2, dev)
+    it = iter(range(100, 10_000))
+    stages = {
+        "project": cuda_times(lambda: project_model(cam, model)),
+        "bin": cuda_times(lambda: bin_gaussians(proj, W, H)),
+        "forward_kernel": cuda_times(lambda: raster.raster_fwd(bins, attrs, bg, W, H)),
+        "loss": cuda_times(lambda: loss_only(render_img, depth_img)),
+        "forward_whole": cuda_times(lambda: loss_fn(offset())),
+        "backward_autograd": cuda_times(backward, setup=graph),
+        "backward_kernel": cuda_times(
+            lambda: raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)),
+        "adam": cuda_times(lambda: apply_update(model, state, grads, next(it), cfg)),
+        "stats": cuda_times(lambda: update_stats(model, out.radii, g_all[-1], W, H)),
+    }
+
+    def step():
+        train_step(model, state, bundle, cam, gt, 0, next(it), bg, cfg)
+
+    whole = cuda_times(step)
+    host = host_times(step)
+    busy = device_busy(step)
+    emit("train_time", scene="main_path_hybrid", width=W, height=H, gaussians=model.total,
+         entries=bins.num_entries, stages=stages, train_step=whole, train_step_host_ms=host,
+         device=busy, device_idle_share=max(0.0, 1.0 - busy["busy_ms"] / host["median_ms"]),
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device(DEVICE)
+
+    # 1. device
+    card = nvidia_smi("name,power.limit")
+    print(card, flush=True)
+    emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
+
+    # 2. build every kernel from the checkout's sources
+    build_kernels(root)
+
+    # 3. serving: kernels vs plain, tile path vs oracle, 5 views, timings
+    with torch.no_grad():
+        serving = serving_phases(dev, root)
+
+    # 4. training: 6 steps at 1080p, stage times
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_launches = training_phase(dev)
+
+    # 5. the dense 4K serving regime
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     W4, H4, _ = DENSE
-    scene_4k = bench_scene(*DENSE, 0, (-5.5, -4.0))
-    model_4k = model_from_numpy(bench_model_leaves(scene_4k), 3, device=dev)
-    breakdown("bench_dense", bench_camera(W4, H4, dev), model_4k)
+    with torch.no_grad():
+        scene_4k = bench_scene(*DENSE, 0, (-5.5, -4.0))
+        model_4k = model_from_numpy(bench_model_leaves(scene_4k), 3, device=dev)
+        render_breakdown("bench_dense", bench_camera(W4, H4, dev), model_4k,
+                         torch.zeros(3, device=dev))
     emit("card_state", nvidia_smi=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     print(card, flush=True)
+    sources = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
+               "raster_bwd": "scgaussian_tpu/renderer/tile_raster.py:685"}
     print(json.dumps({"kernels": [{
-        "name": "raster_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "scgaussian_tpu_torch/csrc/raster_fwd.cu",
-        "replaces": "scgaussian_tpu/renderer/tile_raster.py:578",
-        "launches": launches["raster_fwd"],
-        "max_abs_err": max(main_err[f"{k}_max_abs_err"] for k in ("image", "depth", "alpha", "T")),
-        "ms": kernel_t["median_ms"],
-        "plain_ms": plain_t["median_ms"],
-        "bound_ms": bound,
-        "bound_by": bound_by,
+        "source": f"scgaussian_tpu_torch/csrc/{name}.cu",
+        "replaces": sources[name],
+        # the forward's count covers both paths: 5 serving views + 6 steps
+        "launches": serving["serving_launches"][name] + train_launches[name],
+        **{k: serving[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
         "library_ms": None,
-    }]}), flush=True)
+    } for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,16 @@
 
 Port of `scgaussian_tpu/model/gaussians.py` (reference `GaussianModel`,
 `scene/gaussian_model.py:34-934`) as an `nn.Module`, with the JAX package's
-fixed capacity and alive mask:
+fixed capacity, alive mask and densification statistics:
 
 - foreground (ray) Gaussians: position is `xyz = rayo + rayd * zval`
   (`scene/gaussian_model.py:127`); only `zval` is a parameter, `rayo` and
   `rayd` are fixed buffers;
 - background Gaussians: ordinary 3DGS parameters in a preallocated
-  capacity with a `bg_alive` mask buffer.
+  capacity with a `bg_alive` mask buffer;
+- densification statistics over the combined axis [Nr + Cb]
+  (`xyz_gradient_accum`, `denom`, `max_radii2d`), buffers that
+  `model.densify.update_stats` accumulates into in place.
 
 The 12 `GaussianParams` leaves of the JAX model are this module's
 parameters under the same names. Activations follow
@@ -63,10 +66,16 @@ BUFFER_NAMES = (
     "bg_alive",  # [Cb] bool
     "active_sh_degree",  # [] int32, masks SH bands
 )
+STAT_NAMES = (
+    "xyz_gradient_accum",  # [N, 1]
+    "denom",  # [N, 1]
+    "max_radii2d",  # [N]
+)
 
 
 class GaussianModel(nn.Module):
-    """Parameters + fixed buffers of the hybrid model."""
+    """Parameters + fixed buffers + densification statistics of the hybrid
+    model. The statistics start at zero unless `leaves` holds them."""
 
     def __init__(self, leaves: Mapping[str, torch.Tensor], max_sh_degree: int,
                  spatial_lr_scale: float = 1.0):
@@ -81,6 +90,15 @@ class GaussianModel(nn.Module):
         self.register_buffer(
             "active_sh_degree", torch.as_tensor(leaves["active_sh_degree"]).to(torch.int32)
         )
+        n = self.total
+        dev = self.zval.device
+        for name, shape in zip(STAT_NAMES, ((n, 1), (n, 1), (n,))):
+            stat = leaves.get(name)
+            if stat is None:
+                stat = torch.zeros(shape, dtype=torch.float32, device=dev)
+            elif tuple(stat.shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {list(stat.shape)}")
+            self.register_buffer(name, stat.to(torch.float32).contiguous())
         self.max_sh_degree = int(max_sh_degree)
         self.spatial_lr_scale = float(spatial_lr_scale)
 
@@ -140,6 +158,14 @@ class GaussianModel(nn.Module):
         )
         return transforms.strip_symmetric(cov)
 
+    @torch.no_grad()
+    def oneup_sh_degree(self) -> "GaussianModel":
+        """`scene/gaussian_model.py:157-159`, in place; returns the model."""
+        self.active_sh_degree.copy_(
+            torch.clamp(self.active_sh_degree + 1, max=self.max_sh_degree)
+        )
+        return self
+
 
 def model_from_numpy(
     leaves: Mapping[str, np.ndarray],
@@ -147,9 +173,10 @@ def model_from_numpy(
     device: str | torch.device | None = None,
     spatial_lr_scale: float = 1.0,
 ) -> GaussianModel:
-    """A model from numpy arrays named as in `PARAM_NAMES` + `BUFFER_NAMES`,
-    e.g. the leaves of a JAX `GaussianModel` carried across with
-    `np.asarray`. Runs on `device` (default: the GPU)."""
+    """A model from numpy arrays named as in `PARAM_NAMES` + `BUFFER_NAMES`
+    (and optionally `STAT_NAMES`, zeros when absent), e.g. the leaves of a
+    JAX `GaussianModel` carried across with `np.asarray`. Runs on `device`
+    (default: the GPU)."""
     dev = resolve_device(device)
     missing = [n for n in PARAM_NAMES + BUFFER_NAMES if n not in leaves]
     if missing:

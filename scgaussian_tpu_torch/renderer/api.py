@@ -4,11 +4,13 @@ Port of `scgaussian_tpu/renderer/api.py`, the contract of the reference
 `render()` (`gaussian_renderer/__init__.py:20-118`): a camera and raw
 Gaussian attributes in; RGB image, rendered depth, rendered alpha, screen
 radii and a visibility mask out. `mean2d_offset` ([N, 2] zeros in pixel
-units) stands in for the reference's `screenspace_points` whose `.grad` is
+units) stands in for the reference's `screenspace_points` whose gradient is
 read for densification.
 
-Backends: "cuda" (binning + the CUDA compositing kernel; on CPU tensors the
-kernel's plain PyTorch version) and "oracle" (the dense reference).
+Backends: "cuda" (binning + the CUDA compositing kernels, forward and
+backward; on CPU tensors their plain PyTorch versions) and "oracle" (the
+dense reference, differentiated by autograd). Both are differentiable with
+respect to every Gaussian input and `mean2d_offset`.
 """
 
 from __future__ import annotations

@@ -1,15 +1,19 @@
-"""Tile compositing: binning -> the CUDA forward kernel, or its plain version.
+"""Tile compositing: binning -> the CUDA kernels, or their plain versions.
 
 Port of `scgaussian_tpu/renderer/tile_raster.py::rasterize` (204-293) and of
-the forward of `stream_gather_composite` (999-1030). The TPU's Pallas stream
-kernel and its untiling (`assemble_image`) become one hand-written CUDA
-kernel, `csrc/raster_fwd.cu`, that writes the image directly.
+`stream_gather_composite` with its custom VJP (998-1031, 1234-1308). The
+TPU's Pallas stream kernels, the untiling (`assemble_image`) and the
+backward's entry -> Gaussian routing become two hand-written CUDA kernels:
+`csrc/raster_fwd.cu` writes the image directly, `csrc/raster_bwd.cu` writes
+per-Gaussian gradients of the packed attribute rows.
 
-`raster_fwd` is the wrapper: on CUDA tensors it launches the kernel (and
-counts the launch in `LAUNCHES`), on CPU tensors it runs `raster_fwd_plain`,
-the same arithmetic in PyTorch ops over the same bins. There is no other
-fallback: a CUDA tensor never reaches the plain version through the
-wrapper, and a build or launch failure raises.
+`raster_fwd` and `raster_bwd` are the wrappers: on CUDA tensors they launch
+their kernel (and count the launch in `LAUNCHES`), on CPU tensors they run
+`raster_fwd_plain` / `raster_bwd_plain`, the same arithmetic in PyTorch ops
+over the same bins. There is no other fallback: a CUDA tensor never reaches
+a plain version through a wrapper, and a build or launch failure raises.
+`rasterize` is differentiable through `RasterizeFn`, whose backward is
+`raster_bwd`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from scgaussian_tpu_torch.renderer import _build
 from scgaussian_tpu_torch.renderer.binning import TileBins, bin_gaussians
@@ -29,7 +34,7 @@ TILE = 16  # the kernel's tile: one 16x16 block of threads per tile
 ATTR_WIDTH = 12  # packed attribute row, 3 float4 (see csrc/raster_fwd.cu)
 
 # Kernel launches since import, by kernel. Only the wrappers add to it.
-LAUNCHES = {"raster_fwd": 0}
+LAUNCHES = {"raster_fwd": 0, "raster_bwd": 0}
 
 RasterOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -86,16 +91,18 @@ def raster_fwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
 
     Returns (color [3, H, W], depth [H, W], alpha [H, W], final T [H, W],
     last contributor [H, W] int32: 1-based position in the tile's range of
-    the last entry that blended, 0 if none)."""
+    the last entry that blended, 0 if none).
+
+    The kernel's outputs carry no autograd history: to differentiate, call
+    `rasterize` (or `RasterizeFn`), whose backward is `raster_bwd`. On the
+    GPU, a call that would silently drop gradients raises."""
     _check_inputs(bins, attrs, bg, width, height)
     if attrs.device.type == "cpu":
         return raster_fwd_plain(bins, attrs, bg, width, height)
     if attrs.device.type != "cuda":
         raise ValueError(f"no rasterizer for device {attrs.device}")
-    if attrs.requires_grad:
-        raise NotImplementedError(
-            "the CUDA rasterizer has no backward yet: render under torch.no_grad()"
-        )
+    if attrs.requires_grad and torch.is_grad_enabled():
+        raise ValueError("raster_fwd is not differentiable: use rasterize (RasterizeFn)")
     return _raster_fwd_cuda(bins, attrs, bg, width, height)
 
 
@@ -132,6 +139,15 @@ def _raster_fwd_cuda(bins, attrs, bg, width, height) -> RasterOut:
     return color, depth, alpha, T, last
 
 
+def _tile_pixels(nx: int, ny: int, dev: torch.device):
+    """Pixel x, y (float32, [tiles, 256]) of every tile's threads."""
+    lidx = torch.arange(TILE * TILE, device=dev)
+    tid = torch.arange(nx * ny, device=dev)
+    px = ((tid % nx)[:, None] * TILE + lidx % TILE).to(torch.float32)
+    py = ((tid // nx)[:, None] * TILE + lidx // TILE).to(torch.float32)
+    return px, py
+
+
 def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                      width: int, height: int, stats: dict | None = None) -> RasterOut:
     """The kernel's arithmetic in PyTorch ops, differentiable by autograd.
@@ -148,10 +164,7 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     starts = bins.tile_starts[:-1].to(torch.int64)
     counts = bins.tile_starts[1:].to(torch.int64) - starts
 
-    lidx = torch.arange(TILE * TILE, device=dev)
-    tid = torch.arange(num_tiles, device=dev)
-    px = ((tid % nx)[:, None] * TILE + lidx % TILE).to(torch.float32)  # [T, 256]
-    py = ((tid // nx)[:, None] * TILE + lidx // TILE).to(torch.float32)
+    px, py = _tile_pixels(nx, ny, dev)  # [T, 256]
     inside = (px < width) & (py < height)
 
     T = torch.ones(num_tiles, TILE * TILE, dtype=torch.float32, device=dev)
@@ -197,6 +210,182 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     return color, image(D), image(1.0 - T), image(T), image(last)
 
 
+def _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha,
+                      width: int, height: int) -> None:
+    dev = attrs.device
+    for name, t, dtype, shape in (
+        ("T_final", T_final, torch.float32, (height, width)),
+        ("last", last, torch.int32, (height, width)),
+        ("g_color", g_color, torch.float32, (3, height, width)),
+        ("g_depth", g_depth, torch.float32, (height, width)),
+        ("g_alpha", g_alpha, torch.float32, (height, width)),
+    ):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, attrs on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def raster_bwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
+               T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
+               g_depth: torch.Tensor, g_alpha: torch.Tensor,
+               width: int, height: int) -> torch.Tensor:
+    """Gradients of the packed attribute rows from the cotangents of
+    `raster_fwd`'s color [3, H, W], depth [H, W] and alpha [H, W], given the
+    forward's final T and last contributor.
+
+    Returns d_attrs [N, 12] float32: columns 0-9 mean x/y, conic a/b/c,
+    opacity, rgb, depth; columns 10-11 zero. CUDA's conventions: the 0.99
+    alpha cap is ignored, dead entries and entries past a pixel's last
+    contributor get nothing."""
+    _check_inputs(bins, attrs, bg, width, height)
+    _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
+    if attrs.device.type == "cpu":
+        return raster_bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth,
+                                g_alpha, width, height)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"no rasterizer for device {attrs.device}")
+    return _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth,
+                            g_alpha, width, height)
+
+
+@functools.cache
+def _raster_bwd_fn():
+    fn = _build.load("raster_bwd").raster_bwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
+                     width, height) -> torch.Tensor:
+    fn = _raster_bwd_fn()
+    dev = attrs.device
+    with torch.cuda.device(dev):
+        d_attrs = torch.zeros(attrs.shape[0], ATTR_WIDTH, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            bins.tile_starts.data_ptr(), bins.gauss_ids.data_ptr(),
+            attrs.data_ptr(), bg.data_ptr(), width, height,
+            T_final.data_ptr(), last.data_ptr(), g_color.data_ptr(),
+            g_depth.data_ptr(), g_alpha.data_ptr(), d_attrs.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
+    LAUNCHES["raster_bwd"] += 1
+    return d_attrs
+
+
+def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
+                     T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
+                     g_depth: torch.Tensor, g_alpha: torch.Tensor,
+                     width: int, height: int) -> torch.Tensor:
+    """The backward kernel's arithmetic in PyTorch ops (hand-derived, no
+    autograd).
+
+    All tiles step together from the back, one entry of each tile's range
+    per step, over a [tiles, 256] pixel state: T is recovered from the
+    final T by dividing by (1 - alpha), and `tail` carries
+    sum_{j>i} w_j G_j + T_final (g_color . bg - g_alpha). Each step sums
+    its per-pixel terms per tile and adds them into the Gaussian's row
+    with `index_add_`."""
+    dev = attrs.device
+    nx, ny = bins.nx, bins.ny
+    num_tiles = nx * ny
+    starts = bins.tile_starts[:-1].to(torch.int64)
+    px, py = _tile_pixels(nx, ny, dev)
+
+    def tiles(x, fill):  # [..., H, W] -> [..., T, 256], padding with `fill`
+        lead = x.shape[:-2]
+        x = F.pad(x, (0, nx * TILE - width, 0, ny * TILE - height), value=fill)
+        x = x.reshape(*lead, ny, TILE, nx, TILE).movedim(-3, -2)
+        return x.reshape(*lead, num_tiles, TILE * TILE)
+
+    T = tiles(T_final, 1.0)
+    last_t = tiles(last, 0)
+    gC = tiles(g_color, 0.0)  # [3, T, 256]
+    gD = tiles(g_depth, 0.0)
+    tail = T * (gC[0] * bg[0] + gC[1] * bg[1] + gC[2] * bg[2] - tiles(g_alpha, 0.0))
+    d = torch.zeros(attrs.shape[0], 10, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    n_entries = bins.num_entries
+    steps = int(last_t.max()) if last_t.numel() else 0
+    for k in reversed(range(steps)):
+        active = k < last_t  # [T, 256]
+        g = bins.gauss_ids[torch.clamp(starts + k, max=n_entries - 1)].long()
+        a = attrs[g]  # [T, 12]
+        dx = a[:, 0:1] - px
+        dy = a[:, 1:2] - py
+        power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
+        G = torch.exp(power)
+        alpha_pre = a[:, 5:6] * G
+        alpha = torch.clamp(alpha_pre, max=ALPHA_MAX)
+        live = active & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        one_m = 1.0 - alpha
+        T_before = torch.where(live, T / one_m, T)
+        w = torch.where(live, alpha * T_before, zero)
+        Gc = gC[0] * a[:, 6:7] + gC[1] * a[:, 7:8] + gC[2] * a[:, 8:9] + gD * a[:, 9:10]
+        d_alpha = torch.where(live, T_before * Gc - tail / one_m, zero)
+        tail = tail + w * Gc
+        T = T_before
+        d_power = d_alpha * alpha_pre  # the cap is ignored
+        terms = torch.stack([
+            -d_power * (a[:, 2:3] * dx + a[:, 3:4] * dy),
+            -d_power * (a[:, 4:5] * dy + a[:, 3:4] * dx),
+            -0.5 * dx * dx * d_power,
+            -dx * dy * d_power,
+            -0.5 * dy * dy * d_power,
+            d_alpha * G,
+            w * gC[0],
+            w * gC[1],
+            w * gC[2],
+            w * gD,
+        ], dim=-1)  # [T, 256, 10]
+        # select, not multiply: G overflows to inf on dead entries with power > 0
+        terms = torch.where(live[..., None], terms, zero)
+        d.index_add_(0, g, terms.sum(1))
+    return torch.cat([d, torch.zeros_like(d[:, :2])], dim=1)
+
+
+class RasterizeFn(torch.autograd.Function):
+    """Differentiable compositing of packed attribute rows over fixed bins:
+    forward `raster_fwd` (saving the final T and last contributor), backward
+    `raster_bwd`. On CPU tensors both run their plain versions, so the
+    forward builds no graph and the hand-derived backward is the one used."""
+
+    @staticmethod
+    def forward(ctx, attrs: torch.Tensor, bg: torch.Tensor, bins: TileBins,
+                width: int, height: int):
+        color, depth, alpha, T, last = raster_fwd(bins, attrs, bg, width, height)
+        ctx.save_for_backward(attrs, bg, T, last)
+        ctx.bins = bins
+        ctx.size = (width, height)
+        return color, depth, alpha
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_color, g_depth, g_alpha):
+        attrs, bg, T, last = ctx.saved_tensors
+        width, height = ctx.size
+
+        def cot(g, *shape):
+            if g is None:
+                return torch.zeros(*shape, dtype=torch.float32, device=attrs.device)
+            return g.to(torch.float32).contiguous()
+
+        g_color = cot(g_color, 3, height, width)
+        d_attrs = raster_bwd(ctx.bins, attrs, bg, T, last, g_color,
+                             cot(g_depth, height, width), cot(g_alpha, height, width),
+                             width, height)
+        d_bg = (g_color * T).sum((1, 2)) if ctx.needs_input_grad[1] else None
+        return d_attrs, d_bg, None, None, None
+
+
 def rasterize(
     proj: ProjectedGaussians,
     width: int,
@@ -204,7 +393,8 @@ def rasterize(
     bg_color: torch.Tensor,
     tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full tile pipeline: bin -> composite. Returns (color [3, H, W],
+    """Full tile pipeline: bin -> composite, differentiable with respect to
+    the projected attributes (and the background). Returns (color [3, H, W],
     depth [1, H, W], alpha [1, H, W]). Nothing is budgeted, so nothing is
     ever dropped."""
     if tile != TILE:
@@ -212,5 +402,5 @@ def rasterize(
     bins = bin_gaussians(proj, width, height, TILE)
     attrs = pack_attrs(proj)
     bg = bg_color.to(device=attrs.device, dtype=torch.float32).contiguous()
-    color, depth, alpha, _, _ = raster_fwd(bins, attrs, bg, width, height)
+    color, depth, alpha = RasterizeFn.apply(attrs, bg, bins, width, height)
     return color, depth[None], alpha[None]

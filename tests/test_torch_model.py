@@ -16,7 +16,9 @@ from scgaussian_tpu.model.gaussians import GaussianParams
 from scgaussian_tpu.train.main_stage import render_model as j_render_model
 from scgaussian_tpu_torch.core.cameras import Camera as TCamera
 from scgaussian_tpu_torch.model import io as tio
-from scgaussian_tpu_torch.model.gaussians import BUFFER_NAMES, PARAM_NAMES, model_from_numpy
+from scgaussian_tpu_torch.model.gaussians import (
+    BUFFER_NAMES, PARAM_NAMES, STAT_NAMES, model_from_numpy,
+)
 from scgaussian_tpu_torch.train.main_stage import render_model as t_render_model
 
 W, H = 64, 48
@@ -108,7 +110,7 @@ def test_model_getters_match_jax(active):
     t = model_from_numpy(jax_leaves(j), 3, device="cpu")
     assert (t.num_ray, t.bg_capacity, t.total) == (j.num_ray, j.bg_capacity, j.total)
     assert sorted(n for n, _ in t.named_parameters()) == sorted(PARAM_NAMES)
-    assert sorted(n for n, _ in t.named_buffers()) == sorted(BUFFER_NAMES)
+    assert sorted(n for n, _ in t.named_buffers()) == sorted(BUFFER_NAMES + STAT_NAMES)
     for getter in ("get_xyz", "get_scaling", "get_rotation", "get_opacity_raw",
                    "alive_mask", "get_opacity", "get_features", "get_covariance"):
         np.testing.assert_allclose(getattr(t, getter)().detach().numpy(),

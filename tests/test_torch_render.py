@@ -3,9 +3,10 @@ against the JAX package on the CPU.
 
 The JAX tile path runs its Pallas kernels in interpret mode, as
 tests/test_tile_raster.py runs them. The port's tile path on CPU tensors
-runs the CUDA kernel's plain PyTorch version; the kernel itself is held
-against that plain version on the card (`test_cuda_kernel_matches_plain`
-here, and chip_smoke.py)."""
+runs the CUDA kernels' plain PyTorch versions (the forward, and the
+hand-derived backward through `raster.RasterizeFn`); the kernels themselves
+are held against those plain versions on the card
+(`test_cuda_kernel_matches_plain` here, and chip_smoke.py)."""
 
 import dataclasses
 import functools
@@ -320,11 +321,153 @@ def test_mean2d_offset_reaches_the_plain_tile_path():
     assert bool(torch.isfinite(off.grad).all()) and float(off.grad.abs().max()) > 0
 
 
+# ---------------- backward ----------------
+
+GRAD_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "opacity": (5, 6), "rgb": (6, 9),
+               "depth": (9, 10)}
+
+
+def cotangents(width, height, which, seed=0):
+    """Random cotangents of (color, depth, alpha); those not in `which` are 0."""
+    rng = np.random.default_rng(seed)
+    shapes = {"color": (3, height, width), "depth": (height, width), "alpha": (height, width)}
+    return [torch.tensor(rng.normal(size=shapes[k]).astype(np.float32)) if k in which
+            else torch.zeros(shapes[k]) for k in ("color", "depth", "alpha")]
+
+
+def assert_grad_groups(got, want, rel, msg=""):
+    """Per column group of d_attrs: max abs error <= rel * max|want|."""
+    for name, (lo, hi) in GRAD_GROUPS.items():
+        a, b = got[:, lo:hi], want[:, lo:hi]
+        tol = rel * float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol, f"{msg} {name}"
+    assert float(got[:, 10:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("which", [("color",), ("depth",), ("alpha",), ("color", "depth", "alpha")],
+                         ids=["color", "depth", "alpha", "all"])
+@pytest.mark.parametrize("case", ["seed2_n200", "opaque_early_stop"])
+def test_plain_backward_matches_autograd(case, which):
+    """raster_bwd_plain (hand-derived) against autograd of raster_fwd_plain
+    on the same bins. Opacities are below the 0.99 cap, where the two
+    conventions agree. Tolerance 1e-5 * max|g| per column group: the same
+    arithmetic, summed in another order."""
+    _, t, tcam = project_both(case)
+    W, H = tcam.width, tcam.height
+    bg = torch.tensor(CASES[case]()[2], dtype=torch.float32)
+    bins = tbinning.bin_gaussians(t, W, H)
+    attrs = raster.pack_attrs(t).detach().requires_grad_()
+    gC, gD, gA = cotangents(W, H, which)
+    color, depth, alpha, T, last = raster.raster_fwd_plain(bins, attrs, bg, W, H)
+    loss = (color * gC).sum() + (depth * gD).sum() + (alpha * gA).sum()
+    (want,) = torch.autograd.grad(loss, attrs)
+    got = raster.raster_bwd(bins, attrs.detach(), bg, T.detach(), last, gC, gD, gA, W, H)
+    assert got.shape == (attrs.shape[0], raster.ATTR_WIDTH)
+    assert_grad_groups(got, want, 1e-5, f"{case} {which}")
+    if case == "opaque_early_stop":  # the 1e-4 stop leaves entries without gradient
+        assert bool((T.min() < 1e-3) and (last < (bins.tile_starts[1:] - bins.tile_starts[:-1]).max()).any())
+
+
+def test_rasterize_function_uses_the_hand_backward():
+    """Through RasterizeFn the gradient is raster_bwd's, also for bg."""
+    _, t, tcam = project_both("seed1_n64")
+    W, H = tcam.width, tcam.height
+    bins = tbinning.bin_gaussians(t, W, H)
+    attrs = raster.pack_attrs(t).detach().requires_grad_()
+    bg = torch.tensor([0.1, 0.2, 0.3], requires_grad=True)
+    gC, gD, gA = cotangents(W, H, ("color", "depth", "alpha"), seed=1)
+    color, depth, alpha = raster.RasterizeFn.apply(attrs, bg, bins, W, H)
+    g_attrs, g_bg = torch.autograd.grad(
+        (color * gC).sum() + (depth * gD).sum() + (alpha * gA).sum(), (attrs, bg))
+    with torch.no_grad():
+        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
+        want = raster.raster_bwd(bins, attrs, bg, T, last, gC, gD, gA, W, H)
+    assert torch.equal(g_attrs, want)
+    torch.testing.assert_close(g_bg, (gC * T).sum((1, 2)), rtol=1e-6, atol=1e-6)
+
+
+def test_mean2d_offset_gradient_matches_jax():
+    """d loss / d mean2d_offset through the tile path (hand backward)
+    against JAX oracle autodiff, at 5e-4 * max|g|."""
+    jcam, tcam, (means, scales, quats, opac, shs) = gradients_case()
+    n = means.shape[0]
+    bg = np.float32([0.3, 0.3, 0.3])
+    target = np.full((3, tcam.height, tcam.width), 0.5, np.float32)
+
+    def jloss(off):
+        out = jrender(jcam, jnp.asarray(means), jnp.asarray(opac), jnp.asarray(bg),
+                      scales=jnp.asarray(scales), rotations=jnp.asarray(quats),
+                      shs=jnp.asarray(shs), active_sh_degree=2, mean2d_offset=off,
+                      backend="oracle")
+        return (jnp.mean((out.render - target) ** 2) + 0.05 * jnp.mean(out.rendered_depth)
+                + 0.05 * jnp.mean(out.rendered_alpha))
+
+    want = np.asarray(jax.grad(jloss)(jnp.zeros((n, 2), jnp.float32)))
+    off = torch.zeros(n, 2, requires_grad=True)
+    out = trender(tcam, torch.tensor(means), torch.tensor(opac), torch.tensor(bg),
+                  scales=torch.tensor(scales), rotations=torch.tensor(quats),
+                  shs=torch.tensor(shs), active_sh_degree=2, mean2d_offset=off)
+    loss = (torch.mean((out.render - torch.tensor(target)) ** 2)
+            + 0.05 * torch.mean(out.rendered_depth) + 0.05 * torch.mean(out.rendered_alpha))
+    (got,) = torch.autograd.grad(loss, off)
+    assert float(np.abs(want).max()) > 0
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-4 * np.abs(want).max())
+
+
+def test_backward_ignores_the_alpha_cap():
+    """One Gaussian whose opacity * G exceeds 0.99 near its centre gets the
+    uncapped d_opacity of the JAX tile kernel (tile_raster.py:816-819):
+    d_op = sum over its live pixels of d_alpha * G, where for a lone
+    Gaussian d_alpha = g_color . c + g_depth d - (g_color . bg - g_alpha).
+    Autograd of the oracle (the min(0.99, .) clamp) instead gives those
+    capped pixels nothing."""
+    _, tcam = cameras(48, 32)
+    W, H = tcam.width, tcam.height
+    args = dict(scales=torch.full((1, 3), 0.3), rotations=torch.tensor([[1.0, 0.0, 0.0, 0.0]]),
+                colors_precomp=torch.tensor([[0.8, 0.4, 0.2]]))
+    means = torch.tensor([[0.05, -0.03, 3.0]])
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    gC, gD, gA = cotangents(W, H, ("color", "depth", "alpha"), seed=3)
+
+    def d_opacity(backend):
+        op = torch.tensor([0.998], requires_grad=True)
+        out = trender(tcam, means, op, bg, backend=backend, **args)
+        loss = ((out.render * gC).sum() + (out.rendered_depth[0] * gD).sum()
+                + (out.rendered_alpha[0] * gA).sum())
+        return float(torch.autograd.grad(loss, op)[0])
+
+    proj = tproject.project(tcam, means, torch.tensor([0.998]), **args)
+    bins = tbinning.bin_gaussians(proj, W, H)
+    tiles_hit = torch.zeros(bins.ny * bins.nx, dtype=torch.bool)
+    tiles_hit[(bins.tile_starts[1:] - bins.tile_starts[:-1]) > 0] = True
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    in_rect = tiles_hit.reshape(bins.ny, bins.nx).repeat_interleave(16, 0).repeat_interleave(
+        16, 1)[:H, :W]
+    (mx, my), (ca, cb, cc), o = proj.mean2d[0], proj.conic[0], proj.opacity[0]
+    dx, dy = mx - xs, my - ys
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    G = torch.exp(power)
+    alpha_pre = o * G
+    live = in_rect & (power <= 0) & (torch.clamp(alpha_pre, max=0.99) >= 1 / 255)
+    capped = live & (alpha_pre > 0.99)
+    assert int(capped.sum()) > 0  # the cap is reached
+    d_alpha = ((gC * proj.color[0][:, None, None]).sum(0) + gD * proj.depth[0]
+               - ((gC * bg[:, None, None]).sum(0) - gA))
+    uncapped = float((d_alpha * G)[live].sum())
+    clamped = float((d_alpha * G)[live & ~capped].sum())
+    assert abs(uncapped - clamped) > 1e-2 * abs(uncapped)
+    assert d_opacity("cuda") == pytest.approx(uncapped, rel=1e-4, abs=1e-5)
+    assert d_opacity("oracle") == pytest.approx(clamped, rel=1e-4, abs=1e-5)
+
+
 # ---------------- on the card ----------------
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
-    """The CUDA kernel against its plain version on the same bins."""
+    """The CUDA kernels against their plain versions on the same bins: the
+    forward exactly where it decides thresholds, the backward per column
+    group within 1e-5 * max|g| (atomics change the order of the sums)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
     (_, tcam), (means, scales, quats, opac, shs), bg, tol, dtol = CASES["seed2_n200"]()
@@ -337,13 +480,23 @@ def test_cuda_kernel_matches_plain():
         bins = tbinning.bin_gaussians(proj, cam.width, cam.height)
         attrs = raster.pack_attrs(proj)
         bg_t = torch.tensor(bg, dtype=torch.float32, device="cuda")
-        before = raster.LAUNCHES["raster_fwd"]
+        before = dict(raster.LAUNCHES)
         k = raster.raster_fwd(bins, attrs, bg_t, cam.width, cam.height)
         torch.cuda.synchronize()
-        assert raster.LAUNCHES["raster_fwd"] == before + 1
+        assert raster.LAUNCHES["raster_fwd"] == before["raster_fwd"] + 1
         p = raster.raster_fwd_plain(bins, attrs, bg_t, cam.width, cam.height)
-    for a, b, tl in zip(k[:4], p[:4], (tol, dtol, tol, tol)):
-        torch.testing.assert_close(a, b, atol=tl, rtol=0)
-    assert torch.equal(k[4], p[4])
-    with pytest.raises(NotImplementedError):
+        for a, b, tl in zip(k[:4], p[:4], (tol, dtol, tol, tol)):
+            torch.testing.assert_close(a, b, atol=tl, rtol=0)
+        assert torch.equal(k[4], p[4])
+
+        cots = [c.cuda() for c in cotangents(cam.width, cam.height, ("color", "depth", "alpha"))]
+        T, last = k[3], k[4]
+        kb = raster.raster_bwd(bins, attrs, bg_t, T, last, *cots, cam.width, cam.height)
+        torch.cuda.synchronize()
+        assert raster.LAUNCHES["raster_bwd"] == before["raster_bwd"] + 1
+        pb = raster.raster_bwd_plain(bins, attrs, bg_t, T, last, *cots, cam.width, cam.height)
+    assert_grad_groups(kb, pb, 1e-5, "kernel vs plain")
+    # the kernel's outputs carry no history: a differentiable call must go
+    # through RasterizeFn, so raster_fwd refuses one under grad mode
+    with pytest.raises(ValueError, match="differentiable"):
         raster.raster_fwd(bins, attrs.clone().requires_grad_(), bg_t, cam.width, cam.height)
