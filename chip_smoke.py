@@ -62,11 +62,15 @@ REPS = 5  # timed repeats after one warm-up
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_PAIR = 16  # ~15 fp32 operations + 1 expf per (pixel, entry) pair evaluated
-# backward, per (pixel, entry) pair up to the pixel's last contributor, counted
-# from csrc/raster_bwd.cu: 11 for power, 1 expf, 2 alpha, 1 + 1 for 1 - alpha
-# and T, 1 w, 7 color/depth dot, 3 d_alpha, 2 tail, 1 d_power, 1 d_opacity,
-# 10 mean2d, 9 conic, 4 rgb/depth; plus 10 adds to sum the terms per entry
-OPS_PER_PAIR_BWD = 64
+# backward, per (pixel, entry) pair before the pixel's last contributor, counted
+# from csrc/raster_bwd.cu. A live pair takes the whole chain: 11 for power,
+# 1 expf, 2 alpha, 1 + 1 for 1 - alpha and T, 1 w, 7 color/depth dot,
+# 3 d_alpha, 2 tail, 1 d_power, 1 d_opacity, 10 mean2d, 9 conic, 4 rgb/depth,
+# plus 10 adds to sum the terms per entry. A dead pair takes only the liveness
+# test: power (11), and where power <= 0 also expf and alpha (3 more).
+OPS_LIVE_BWD = 64
+OPS_FAINT_BWD = 14  # power <= 0, alpha < 1/255
+OPS_FAR_BWD = 11  # power > 0
 ALPHA_T_MAX = 1e-5  # kernel vs plain: alpha and final T (they agree bitwise when right)
 # backward kernel vs plain: max abs error per column group <= this * max|g|.
 # The per-pixel arithmetic is the same; atomics change the order of the sums
@@ -286,8 +290,8 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
     Image and depth get the stated tolerances; alpha, final T and the last
     contributor must agree to ALPHA_T_MAX and exactly, since the kernel
     rounds the threshold-deciding arithmetic step by step as the plain
-    version does. Returns the errors, the evaluated pair count and the
-    bound inputs."""
+    version does. Returns the errors, the evaluated pair count, the bound
+    inputs and the kernel's final T and last contributor."""
     bins = bin_gaussians(proj, W, H)
     attrs = raster.pack_attrs(proj)
     bg = torch.tensor([0.1, 0.2, 0.3], device=attrs.device)
@@ -319,7 +323,8 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
               f"{name}: {key} max err {err[f'{key}_max_abs_err']} >= {ALPHA_T_MAX}")
     check(err["last_contributor_mismatches"] == 0,
           f"{name}: last contributor differs at {err['last_contributor_mismatches']} pixels")
-    return dict(err=err, bins=bins, attrs=attrs, bg=bg, pairs=stats["pairs"])
+    return dict(err=err, bins=bins, attrs=attrs, bg=bg, pairs=stats["pairs"], T=k_out[3],
+                last=k_out[4])
 
 
 def kernel_bound_ms(bins, attrs, W, H, pairs) -> tuple:
@@ -357,15 +362,16 @@ def check_groups(name: str, errs: dict, rel: float) -> None:
 
 def compare_backward(name, cmp: dict, W, H, autograd: bool = False) -> dict:
     """Backward kernel vs plain version on the forward comparison's bins,
-    with random cotangents; with `autograd`, also the plain version vs
-    autograd of raster_fwd_plain. Raises past the limits."""
-    bins, attrs, bg = cmp["bins"], cmp["attrs"], cmp["bg"]
+    final T and last contributor, with random cotangents; with `autograd`,
+    also the plain version vs autograd of raster_fwd_plain. Raises past the
+    limits. Returns the inputs, the pair counts the bound prices and the
+    largest error."""
+    bins, attrs, bg, T, last = cmp["bins"], cmp["attrs"], cmp["bg"], cmp["T"], cmp["last"]
     before = dict(raster.LAUNCHES)
-    with torch.no_grad():
-        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
     cots = random_cotangents(W, H, 1, attrs.device)
     k = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
-    p = raster.raster_bwd_plain(bins, attrs, bg, T, last, *cots, W, H)
+    counts = {}
+    p = raster.raster_bwd_plain(bins, attrs, bg, T, last, *cots, W, H, stats=counts)
     torch.cuda.synchronize()
     raster.LAUNCHES.update(before)  # comparison launches do not count
     check(bool(torch.isfinite(k).all()), f"{name}: backward kernel gradients not finite")
@@ -379,28 +385,31 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False) -> dict:
             loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
             (want,) = torch.autograd.grad(loss, a)
         out["plain_vs_autograd"] = group_errors(p, want)
-    pairs = int(last.sum())
+    check(sum(counts.values()) == int(last.sum()), f"{name}: pair counts {counts}")
     emit("backward_vs_plain", scene=name, width=W, height=H, entries=bins.num_entries,
-         pairs=pairs, **out)
+         **counts, **out)
     check_groups(f"{name} kernel vs plain", errs, BWD_REL_MAX)
     if autograd:
         check_groups(f"{name} plain vs autograd", out["plain_vs_autograd"], AUTOGRAD_REL_MAX)
-    return dict(T=T, last=last, cots=cots, pairs=pairs,
+    return dict(T=T, last=last, cots=cots, counts=counts,
                 max_abs_err=max(e["max_abs_err"] for e in errs.values()))
 
 
-def kernel_bound_ms_bwd(bins, attrs, W, H, pairs) -> tuple:
+def kernel_bound_ms_bwd(bins, attrs, W, H, counts) -> tuple:
     """Least time for the backward kernel's work on an H100 SXM: every input
     read once (tile starts, entry ids, attribute rows, bg; per pixel final
     T, last contributor and 5 cotangents), the [N, 12] gradient rows written
-    once, or the fp32 operations of the pairs up to each pixel's last
-    contributor, whichever is longer."""
+    once, or the fp32 operations of the pairs before each pixel's last
+    contributor (live pairs the whole chain, dead ones the liveness test),
+    whichever is longer."""
     bytes_moved = (
         bins.tile_starts.numel() * 4 + bins.gauss_ids.numel() * 4
         + attrs.numel() * 4 + 3 * 4 + W * H * 7 * 4 + attrs.numel() * 4
     )
     t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = pairs * OPS_PER_PAIR_BWD / H100_FP32_OPS_PER_S * 1e3
+    ops = (counts["live_pairs"] * OPS_LIVE_BWD + counts["faint_pairs"] * OPS_FAINT_BWD
+           + counts["far_pairs"] * OPS_FAR_BWD)
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -544,10 +553,10 @@ def serving_phases(dev, root) -> dict:
     bwd_t = cuda_times(lambda: raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W1, H1))
     bwd_plain_t = cuda_times(
         lambda: raster.raster_bwd_plain(bins, attrs, kbg, T, last, *cots, W1, H1))
-    bwd_bound, bwd_bound_by = kernel_bound_ms_bwd(bins, attrs, W1, H1, main_bwd["pairs"])
+    bwd_bound, bwd_bound_by = kernel_bound_ms_bwd(bins, attrs, W1, H1, main_bwd["counts"])
     emit("kernel_time", kernel="raster_bwd", scene="main_path_view0", kernel_ms=bwd_t,
          plain=bwd_plain_t, bound_ms=bwd_bound, bound_by=bwd_bound_by,
-         entries=bins.num_entries, pairs=main_bwd["pairs"])
+         entries=bins.num_entries, **main_bwd["counts"])
     raster.LAUNCHES.update(launches)  # timing launches do not count
 
     render_breakdown("main_path_hybrid", cams[0], model, bg)
@@ -560,6 +569,7 @@ def serving_phases(dev, root) -> dict:
         "raster_bwd": dict(max_abs_err=main_bwd["max_abs_err"], ms=bwd_t["median_ms"],
                            plain_ms=bwd_plain_t["median_ms"], bound_ms=bwd_bound,
                            bound_by=bwd_bound_by),
+        "raster_bwd_times": bwd_t,
     }
 
 
@@ -585,10 +595,11 @@ def render_breakdown(name, cam, mdl, bg) -> None:
          peak_mem_bytes=torch.cuda.max_memory_allocated())
 
 
-def training_phase(dev) -> dict:
+def training_phase(dev, bwd_kernel_t: dict) -> dict:
     """The training main path: TRAIN_STEPS train_steps at 1080p on the
-    hybrid model, cycling through TRAIN_VIEWS views. Raises on any failed
-    check; returns the launches of the counted run."""
+    hybrid model, cycling through TRAIN_VIEWS views, then the step's stage
+    times (`bwd_kernel_t`: the backward kernel's, timed in serving_phases).
+    Raises on any failed check; returns the launches of the counted run."""
     W1, H1, _ = FULL
     num_ray, num_bg, capacity = HYBRID
     leaves = hybrid_leaves(num_ray, num_bg, capacity, seed=7)
@@ -651,16 +662,17 @@ def training_phase(dev) -> dict:
          view0_loss_before=loss_before, view0_loss_after=loss_after,
          leaves_changed=changed, xyz_gradient_accum_sum=float(model.xyz_gradient_accum.sum()))
 
-    train_breakdown(model, state, bundle, cams[0], gts[0], bg, cfg, extras)
+    train_breakdown(model, state, bundle, cams[0], gts[0], bg, cfg, extras, bwd_kernel_t)
     raster.LAUNCHES.update(launches)  # timing launches do not count
     return launches
 
 
-def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras) -> None:
-    """Stage times of one training step on view 0 (CUDA events), the whole
-    step by events and host clock, the device's busy time per step from the
-    profiler, and peak memory. Keeps stepping the model (iterations from
-    100 on)."""
+def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras, bwd_kernel_t) -> None:
+    """Stage times of one training step on view 0 (CUDA events; the
+    backward kernel's is `bwd_kernel_t`, from the kernel_time phase), the
+    whole step by events and host clock, the device's busy time per step
+    from the profiler, and peak memory. Keeps stepping the model
+    (iterations from 100 on)."""
     W, H = cam.width, cam.height
     torch.cuda.reset_peak_memory_stats()
     dev = bg.device
@@ -694,9 +706,6 @@ def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras) -> None:
 
     g_all = backward(graph())
     grads = dict(zip(PARAM_NAMES, g_all[:-1]))
-    with torch.no_grad():
-        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
-    cots = random_cotangents(W, H, 2, dev)
     it = iter(range(100, 10_000))
     stages = {
         "project": cuda_times(lambda: project_model(cam, model)),
@@ -705,8 +714,8 @@ def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras) -> None:
         "loss": cuda_times(lambda: loss_only(render_img, depth_img)),
         "forward_whole": cuda_times(lambda: loss_fn(offset())),
         "backward_autograd": cuda_times(backward, setup=graph),
-        "backward_kernel": cuda_times(
-            lambda: raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)),
+        # timed once, in the kernel_time phase at the serving path's view 0
+        "backward_kernel": dict(bwd_kernel_t, scene="main_path_view0"),
         "adam": cuda_times(lambda: apply_update(model, state, grads, next(it), cfg)),
         "stats": cuda_times(lambda: update_stats(model, out.radii, g_all[-1], W, H)),
     }
@@ -746,7 +755,7 @@ def main() -> int:
     # 4. training: 6 steps at 1080p, stage times
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    train_launches = training_phase(dev)
+    train_launches = training_phase(dev, serving["raster_bwd_times"])
 
     # 5. the dense 4K serving regime
     torch.cuda.empty_cache()

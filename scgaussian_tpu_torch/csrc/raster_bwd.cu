@@ -41,9 +41,9 @@
 // Bound on an H100: bytes are the entry ids, the attribute rows (48 B per
 // Gaussian), 28 B per pixel read (final T, last contributor, 5 cotangents)
 // and 48 B per Gaussian written; arithmetic is ~64 fp32 operations and one
-// expf per (pixel, entry) pair up to the pixel's last contributor. At 1080p
-// with ~1e5 Gaussians the arithmetic bound is the larger one (PERF.md has
-// the measured time beside it).
+// expf per live (pixel, entry) pair before the pixel's last contributor, and
+// only the liveness test (power; then expf and alpha where power <= 0) per
+// dead one. PERF.md has the measured time beside the bound.
 //
 // Numerics: fp32, built without --use_fast_math. `power` and `alpha` are
 // recomputed with the forward kernel's _rn arithmetic in the same order, so

@@ -283,7 +283,7 @@ def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
 def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                      T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
                      g_depth: torch.Tensor, g_alpha: torch.Tensor,
-                     width: int, height: int) -> torch.Tensor:
+                     width: int, height: int, stats: dict | None = None) -> torch.Tensor:
     """The backward kernel's arithmetic in PyTorch ops (hand-derived, no
     autograd).
 
@@ -292,7 +292,13 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     final T by dividing by (1 - alpha), and `tail` carries
     sum_{j>i} w_j G_j + T_final (g_color . bg - g_alpha). Each step sums
     its per-pixel terms per tile and adds them into the Gaussian's row
-    with `index_add_`."""
+    with `index_add_`.
+
+    With `stats`, stores the (pixel, entry) pairs before each pixel's last
+    contributor by how far the kernel must take them, which is the work its
+    bound counts: "live_pairs" (the whole gradient chain), "faint_pairs"
+    (power <= 0 but alpha < 1/255: power, exp and alpha only) and
+    "far_pairs" (power > 0: power only)."""
     dev = attrs.device
     nx, ny = bins.nx, bins.ny
     num_tiles = nx * ny
@@ -312,6 +318,7 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     tail = T * (gC[0] * bg[0] + gC[1] * bg[1] + gC[2] * bg[2] - tiles(g_alpha, 0.0))
     d = torch.zeros(attrs.shape[0], 10, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # live, faint, far
 
     n_entries = bins.num_entries
     steps = int(last_t.max()) if last_t.numel() else 0
@@ -326,6 +333,9 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         alpha_pre = a[:, 5:6] * G
         alpha = torch.clamp(alpha_pre, max=ALPHA_MAX)
         live = active & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        if stats is not None:
+            near = active & (power <= 0.0)
+            counts += torch.stack([live.sum(), (near & ~live).sum(), (active & ~near).sum()])
         one_m = 1.0 - alpha
         T_before = torch.where(live, T / one_m, T)
         w = torch.where(live, alpha * T_before, zero)
@@ -349,6 +359,8 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         # select, not multiply: G overflows to inf on dead entries with power > 0
         terms = torch.where(live[..., None], terms, zero)
         d.index_add_(0, g, terms.sum(1))
+    if stats is not None:
+        stats.update(zip(("live_pairs", "faint_pairs", "far_pairs"), counts.tolist()))
     return torch.cat([d, torch.zeros_like(d[:, :2])], dim=1)
 
 

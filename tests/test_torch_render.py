@@ -368,6 +368,43 @@ def test_plain_backward_matches_autograd(case, which):
         assert bool((T.min() < 1e-3) and (last < (bins.tile_starts[1:] - bins.tile_starts[:-1]).max()).any())
 
 
+@pytest.mark.parametrize("case", ["seed2_n200", "opaque_early_stop"])
+def test_plain_backward_pair_counts(case):
+    """The backward's work counts (what its bound prices) against a direct
+    count, tile by tile, of the (pixel, entry) pairs before each pixel's last
+    contributor: live, faint (power <= 0, alpha < 1/255) and far (power > 0)."""
+    _, t, tcam = project_both(case)
+    W, H = tcam.width, tcam.height
+    bg = torch.tensor(CASES[case]()[2], dtype=torch.float32)
+    bins = tbinning.bin_gaussians(t, W, H)
+    attrs = raster.pack_attrs(t)
+    _, _, _, T, last = raster.raster_fwd_plain(bins, attrs, bg, W, H)
+    stats = {}
+    raster.raster_bwd_plain(bins, attrs, bg, T, last, *cotangents(W, H, ("color",)), W, H,
+                            stats=stats)
+
+    want = {"live_pairs": 0, "faint_pairs": 0, "far_pairs": 0}
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    for tile in range(bins.nx * bins.ny):
+        y0, x0 = (tile // bins.nx) * 16, (tile % bins.nx) * 16
+        px, py = xs[y0:y0 + 16, x0:x0 + 16].reshape(-1), ys[y0:y0 + 16, x0:x0 + 16].reshape(-1)
+        lt = last[y0:y0 + 16, x0:x0 + 16].reshape(-1)
+        ids = bins.gauss_ids[int(bins.tile_starts[tile]):int(bins.tile_starts[tile + 1])].long()
+        a = attrs[ids]  # [count, 12]
+        dx, dy = a[:, 0:1] - px, a[:, 1:2] - py
+        power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
+        alpha = torch.clamp(a[:, 5:6] * torch.exp(power), max=0.99)
+        before = torch.arange(len(ids))[:, None] < lt  # [count, pixels]
+        near = before & (power <= 0)
+        live = near & (alpha >= 1 / 255)
+        want["live_pairs"] += int(live.sum())
+        want["faint_pairs"] += int((near & ~live).sum())
+        want["far_pairs"] += int((before & ~near).sum())
+    assert stats == want
+    assert sum(want.values()) == int(last.sum()) and want["live_pairs"] > 0
+
+
 def test_rasterize_function_uses_the_hand_backward():
     """Through RasterizeFn the gradient is raster_bwd's, also for bg."""
     _, t, tcam = project_both("seed1_n64")
