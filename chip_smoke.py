@@ -5,14 +5,21 @@
 
 Builds the CUDA kernels of `scgaussian_tpu_torch` from the sources in this
 checkout (one nvcc per source, started together), holds each against its
-plain PyTorch version on the card, then drives the port's two paths:
+plain PyTorch version on the card, then drives the port's three paths:
 
 - serving: model saved to PLY -> `load_ply` -> `render_model` for 5 views
   at 1920x1080, 100k Gaussians, SH degree 3, under `torch.no_grad()`;
-- training: 6 main-stage `train_step`s at 1920x1080 on the same hybrid
-  model (106,384 slots), cycling through 3 views with a `MatchBundle` of
-  6 ordered pairs x 15,000 matches, against ground truth rendered from
-  the model with its depths perturbed.
+- one training step: 6 main-stage `train_step`s at 1920x1080 on the same
+  hybrid model (106,384 slots, so the backward sums with atomics),
+  cycling through 3 views with a `MatchBundle` of 6 ordered pairs x 15,000
+  matches, against ground truth rendered from the model with its depths
+  perturbed;
+- two-stage training at 3840x2160: `setup_from_matches` (init stage,
+  promotion, `create_model`) on 6 ordered pairs x 75,000 exact matches of a
+  300,000-ray ground-truth model, then 12 iterations of `run_main_stage`
+  with one densify event and one opacity reset, on 450,000 ray Gaussians +
+  65,536 background slots, where the backward routes by sort through the
+  segment-sum kernel.
 
 It times the kernels, the stages and whole renders and steps with CUDA
 events, the host clock and the profiler.
@@ -26,6 +33,7 @@ the script fails before printing a result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -44,10 +52,14 @@ from torch.profiler import ProfilerActivity, profile
 from scgaussian_tpu_torch.config import OptimizationConfig, RasterizerConfig, TrainExtras
 from scgaussian_tpu_torch.core.cameras import Camera
 from scgaussian_tpu_torch.losses import l1_loss, ssim
-from scgaussian_tpu_torch.model.densify import update_stats
-from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, model_from_numpy
+from scgaussian_tpu_torch.model.densify import densify_and_prune, reset_opacity, update_stats
+from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, create_model, model_from_numpy
 from scgaussian_tpu_torch.model.io import load_ply, save_ply
-from scgaussian_tpu_torch.model.matches import build_match_bundle, matchloss_from_renderdepth
+from scgaussian_tpu_torch.model.knn import knn_mean_sq_dist
+from scgaussian_tpu_torch.model.matches import (
+    build_match_bundle, init_zvals, matchloss_from_base, matchloss_from_renderdepth,
+    promote_matches, run_init_stage,
+)
 from scgaussian_tpu_torch.renderer import _build, raster
 from scgaussian_tpu_torch.renderer.api import render
 from scgaussian_tpu_torch.renderer.binning import bin_gaussians
@@ -57,6 +69,7 @@ from scgaussian_tpu_torch.train import optim
 from scgaussian_tpu_torch.train.main_stage import (
     apply_update, make_camera_loss, render_model, train_step,
 )
+from scgaussian_tpu_torch.train.pipeline import run_main_stage, setup_from_matches
 
 REPS = 5  # timed repeats after one warm-up
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -89,8 +102,27 @@ VIEWS = 5
 TRAIN_VIEWS = 3  # the LLFF few-shot protocol: 3 views, 6 ordered pairs
 MATCHES = 15_000  # per ordered pair
 TRAIN_STEPS = 6
+# the two-stage 4K training path (the JAX bench's dense 4K regime, bench.py:165-168)
+PIPE_SIZE = (3840, 2160)
+PIPE_GT = (300_000, 20_000, 32_768)  # ground truth: ray Gaussians, alive bg, bg slots
+PIPE_MATCHES = 75_000  # per ordered pair: 6 pairs, 450,000 matches
+PIPE_BG_CAPACITY = 65_536
+PIPE_INIT_ITERS = 2_000  # the reference's init stage (train.py:57)
+PIPE_STEPS = 12
+PIPE_MIN_SLOTS = 262_144  # above it, the default config routes the backward by sort
+# cut: the reference densifies from 500 every 100 and resets every 200 (of
+# 2,000); here one densify/prune event and one opacity reset, both at 10
+PIPE_OPT = dict(densify_from_iter=5, densification_interval=5, opacity_reset_interval=10)
+EVENT = 10  # the iteration of that event
+MIN_PROMOTED = 0.9  # share of the (exact) matches the init stage must promote
+SEGSUM_REL_MAX = 1e-5  # kernel vs plain, per column: index_add_ sums in another order
+# sort route vs atomic route, per column group: atomics reorder the latter's sums
+ROUTE_REL_MAX = 1e-5
 DEVICE = "cuda"
-KERNELS = ("raster_fwd", "raster_bwd")
+KERNELS = ("raster_fwd", "raster_bwd", "segsum")
+REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
+            "raster_bwd": "scgaussian_tpu/renderer/tile_raster.py:685",
+            "segsum": "scgaussian_tpu/renderer/tile_raster.py:1052"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -192,11 +224,14 @@ def logit(p: np.ndarray) -> np.ndarray:
     return np.log(p / (1.0 - p))
 
 
-def hybrid_leaves(num_ray: int, num_bg: int, capacity: int, seed: int) -> dict:
+def hybrid_leaves(num_ray: int, num_bg: int, capacity: int, seed: int,
+                  surface: bool = False) -> dict:
     """Leaves of a hybrid model: `num_ray` ray Gaussians (origins near the
-    world origin, directions inside a 0.9 x 0.6 rad view, depths 2-10) and
-    `num_bg` alive background Gaussians in a `capacity`-slot buffer, SH
-    degree 3 with every band non-zero. Random, from `seed`."""
+    world origin, directions inside a 0.9 x 0.6 rad view, depths 2-10, or
+    with `surface` on the smooth surface 6 + 1.5 sin(4 ax + 1) cos(5 ay) of
+    the ray's angles) and `num_bg` alive background Gaussians in a
+    `capacity`-slot buffer, SH degree 3 with every band non-zero. Random,
+    from `seed`."""
     rng = np.random.default_rng(seed)
     k = 16
     ang_x = rng.uniform(-0.42, 0.42, num_ray)
@@ -216,8 +251,12 @@ def hybrid_leaves(num_ray: int, num_bg: int, capacity: int, seed: int) -> dict:
 
     fg = block(num_ray)
     bg = block(num_bg)
+    if surface:
+        zval = (6.0 + 1.5 * np.sin(4.0 * ang_x + 1.0) * np.cos(5.0 * ang_y))[:, None]
+    else:
+        zval = rng.uniform(2.0, 10.0, (num_ray, 1))
     leaves = dict(
-        zval=rng.uniform(2.0, 10.0, (num_ray, 1)),
+        zval=zval,
         rayo=rng.normal(size=(num_ray, 3)) * 0.01,
         rayd=rayd,
         **fg,
@@ -360,22 +399,26 @@ def check_groups(name: str, errs: dict, rel: float) -> None:
               f"{name} {group}: max err {e['max_abs_err']} > {rel} * {e['max_abs_g']}")
 
 
-def compare_backward(name, cmp: dict, W, H, autograd: bool = False) -> dict:
+def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
+                     per_entry: bool = False) -> dict:
     """Backward kernel vs plain version on the forward comparison's bins,
-    final T and last contributor, with random cotangents; with `autograd`,
-    also the plain version vs autograd of raster_fwd_plain. Raises past the
-    limits. Returns the inputs, the pair counts the bound prices and the
-    largest error."""
+    final T and last contributor, with random cotangents: the atomic
+    epilogue (`raster_bwd`), or with `per_entry` the per-entry one
+    (`raster_bwd_entries`); with `autograd`, also the plain version vs
+    autograd of raster_fwd_plain. Raises past the limits. Returns the
+    inputs, the pair counts the bound prices and the largest error."""
     bins, attrs, bg, T, last = cmp["bins"], cmp["attrs"], cmp["bg"], cmp["T"], cmp["last"]
     before = dict(raster.LAUNCHES)
     cots = random_cotangents(W, H, 1, attrs.device)
-    k = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
+    kernel, plain = ((raster.raster_bwd_entries, raster.raster_bwd_entries_plain) if per_entry
+                     else (raster.raster_bwd, raster.raster_bwd_plain))
+    k = kernel(bins, attrs, bg, T, last, *cots, W, H)
     counts = {}
-    p = raster.raster_bwd_plain(bins, attrs, bg, T, last, *cots, W, H, stats=counts)
+    p = plain(bins, attrs, bg, T, last, *cots, W, H, stats=counts)
     torch.cuda.synchronize()
     raster.LAUNCHES.update(before)  # comparison launches do not count
     check(bool(torch.isfinite(k).all()), f"{name}: backward kernel gradients not finite")
-    check(float(k[:, 10:].abs().max()) == 0.0, f"{name}: padding columns not zero")
+    check(per_entry or float(k[:, 10:].abs().max()) == 0.0, f"{name}: padding columns not zero")
     errs = group_errors(k, p)
     out = {"kernel_vs_plain": errs}
     if autograd:
@@ -387,7 +430,7 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False) -> dict:
         out["plain_vs_autograd"] = group_errors(p, want)
     check(sum(counts.values()) == int(last.sum()), f"{name}: pair counts {counts}")
     emit("backward_vs_plain", scene=name, width=W, height=H, entries=bins.num_entries,
-         **counts, **out)
+         epilogue="per_entry" if per_entry else "atomic", **counts, **out)
     check_groups(f"{name} kernel vs plain", errs, BWD_REL_MAX)
     if autograd:
         check_groups(f"{name} plain vs autograd", out["plain_vs_autograd"], AUTOGRAD_REL_MAX)
@@ -395,16 +438,18 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False) -> dict:
                 max_abs_err=max(e["max_abs_err"] for e in errs.values()))
 
 
-def kernel_bound_ms_bwd(bins, attrs, W, H, counts) -> tuple:
+def kernel_bound_ms_bwd(bins, attrs, W, H, counts, per_entry: bool = False) -> tuple:
     """Least time for the backward kernel's work on an H100 SXM: every input
     read once (tile starts, entry ids, attribute rows, bg; per pixel final
-    T, last contributor and 5 cotangents), the [N, 12] gradient rows written
-    once, or the fp32 operations of the pairs before each pixel's last
-    contributor (live pairs the whole chain, dead ones the liveness test),
-    whichever is longer."""
+    T, last contributor and 5 cotangents), the [N, 12] gradient rows (with
+    `per_entry`, the [E, 10] entry rows) written once, or the fp32
+    operations of the pairs before each pixel's last contributor (live
+    pairs the whole chain, dead ones the liveness test), whichever is
+    longer."""
+    written = bins.num_entries * 10 * 4 if per_entry else attrs.numel() * 4
     bytes_moved = (
         bins.tile_starts.numel() * 4 + bins.gauss_ids.numel() * 4
-        + attrs.numel() * 4 + 3 * 4 + W * H * 7 * 4 + attrs.numel() * 4
+        + attrs.numel() * 4 + 3 * 4 + W * H * 7 * 4 + written
     )
     t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
     ops = (counts["live_pairs"] * OPS_LIVE_BWD + counts["faint_pairs"] * OPS_FAINT_BWD
@@ -413,13 +458,111 @@ def kernel_bound_ms_bwd(bins, attrs, W, H, counts) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# ---------------- segment sum and the route by sort ----------------
+
+def segsum_layouts(seed: int = 3) -> dict:
+    """The four adversarial key layouts of tests/test_tile_raster.py:497-552
+    over 4 x 1,024 rows, keys below 2,200 and the sentinel 2,200: a run over
+    three whole blocks; dense runs crossing blocks with a sentinel suffix;
+    sparse keys with jumps; one key per block. Values are normal, NaN on the
+    sentinel rows. Returns name -> (keys int32 [E], vals float32 [E, 10], n)."""
+    rng = np.random.default_rng(seed)
+    n, B = 2200, 1024
+    L = 4 * B
+    k = np.sort(rng.integers(0, 900, 3 * B + 17))
+    base = np.sort(rng.choice(np.arange(0, B + 192 - 8, 13), 40, replace=False))
+    layouts = {
+        "deep_run": np.sort(np.concatenate([np.full(B // 2, 7), np.full(2 * B + B // 2, 8),
+                                            np.full(B, n)])),
+        "dense_suffix": np.concatenate([k, np.full(L - k.size, n)]),
+        "sparse_jumps": np.sort(np.concatenate([rng.choice(base, 2 * B), base + 960,
+                                                np.full(L - 2 * B - base.size, n)])),
+        "one_key_per_block": np.repeat(np.asarray([3, 3, 1700, n]), B),
+    }
+    out = {}
+    for name, keys in layouts.items():
+        vals = rng.normal(size=(L, 10)).astype(np.float32)
+        vals[keys == n] = np.nan
+        out[name] = (keys.astype(np.int32), vals, n)
+    return out
+
+
+def compare_segsum(name: str, keys: torch.Tensor, vals: torch.Tensor, n: int) -> dict:
+    """segsum kernel vs segsum_plain on the same input: per column, max abs
+    error <= SEGSUM_REL_MAX * (max |plain| + 1); two launches bitwise equal.
+    Raises otherwise. Comparison launches do not count."""
+    before = dict(raster.LAUNCHES)
+    a = raster.segsum(keys, vals, n)
+    b = raster.segsum(keys, vals, n)
+    p = raster.segsum_plain(keys, vals, n)
+    torch.cuda.synchronize()
+    raster.LAUNCHES.update(before)
+    check(bool(torch.isfinite(a).all()), f"segsum {name}: not finite")
+    col_err = (a - p).abs().amax(0)
+    col_max = p.abs().amax(0)
+    out = {"max_abs_err": float(col_err.max()),
+           "max_rel_err": float((col_err / (col_max + 1)).max()),
+           "bitwise_repeat": bool(torch.equal(a, b))}
+    emit("segsum_vs_plain", case=name, rows=int(keys.shape[0]), keys=n, **out)
+    check(bool((col_err <= SEGSUM_REL_MAX * (col_max + 1)).all()),
+          f"segsum {name}: errors {col_err.tolist()} vs max {col_max.tolist()}")
+    check(out["bitwise_repeat"], f"segsum {name}: two launches differ")
+    return out
+
+
+def segsum_bound_ms(rows: int, cols: int, n: int) -> tuple:
+    """Least time for the segment sum on an H100 SXM: keys and rows read
+    once, the [n, cols] sums written once, or its rows * cols additions."""
+    t_bytes = (rows * (4 + 4 * cols) + n * 4 * cols) / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = rows * cols / H100_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def route_grads(bins, attrs, bg, W, H, cots, by_sort: bool) -> torch.Tensor:
+    """d_attrs through RasterizeFn (forward, then the backward by the route
+    asked for) for the loss sum(color * g_color + depth * g_depth + alpha *
+    g_alpha)."""
+    a = attrs.detach().clone().requires_grad_()
+    with torch.enable_grad():
+        color, depth, alpha = raster.RasterizeFn.apply(a, bg, bins, W, H, by_sort)
+        loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
+        return torch.autograd.grad(loss, a)[0]
+
+
+def compare_routes(name: str, bins, attrs, bg, W, H, cots) -> dict:
+    """RasterizeFn's sort route (per-entry kernel, Gaussian-major reorder,
+    segment-sum kernel) vs raster_bwd's atomic route on the same bins and
+    cotangents: per column group within ROUTE_REL_MAX * max|g| (atomics
+    reorder the latter's sums); two sort-route runs bitwise equal (no
+    atomics anywhere on it). Raises otherwise; comparison launches do not
+    count."""
+    before = dict(raster.LAUNCHES)
+    by_sort = route_grads(bins, attrs, bg, W, H, cots, True)
+    again = route_grads(bins, attrs, bg, W, H, cots, True)
+    with torch.no_grad():
+        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
+        atomic = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
+    torch.cuda.synchronize()
+    launched = {k: raster.LAUNCHES[k] - before[k] for k in raster.LAUNCHES}
+    raster.LAUNCHES.update(before)
+    check(launched == {"raster_fwd": 3, "raster_bwd": 3, "segsum": 2},
+          f"{name}: route comparison launched {launched}")
+    check(bool(torch.isfinite(by_sort).all()), f"{name}: sort-route gradients not finite")
+    errs = group_errors(by_sort, atomic)
+    emit("sort_route_vs_atomic", scene=name, width=W, height=H, gaussians=attrs.shape[0],
+         entries=bins.num_entries, bitwise_repeat=bool(torch.equal(by_sort, again)), **errs)
+    check_groups(f"{name} sort route vs atomic route", errs, ROUTE_REL_MAX)
+    check(bool(torch.equal(by_sort, again)), f"{name}: two sort-route backwards differ")
+    return errs
+
+
 # ---------------- training scene ----------------
 
-def match_bundle_for(gt_model, cams, seed: int):
+def match_bundle_for(gt_model, cams, seed: int, matches: int):
     """Ground truth images (renders of `gt_model`, clipped to [0, 1]) and a
-    MatchBundle over every ordered pair of `cams`: MATCHES matches per pair,
-    placed where ray Gaussians of `gt_model` project inside both views.
-    Returns (bundle, gt images [3, H, W] each)."""
+    MatchBundle over every ordered pair of `cams`: `matches` matches per
+    pair, placed where ray Gaussians of `gt_model` project inside both
+    views. Returns (bundle, gt images [3, H, W] each)."""
     rng = np.random.default_rng(seed)
     W, H = cams[0].width, cams[0].height
     with torch.no_grad():
@@ -435,8 +578,8 @@ def match_bundle_for(gt_model, cams, seed: int):
     for i in range(len(cams)):
         for j in range(i + 1, len(cams)):
             both = np.flatnonzero(norm[i][1] & norm[j][1])
-            check(both.size >= MATCHES, f"only {both.size} ray Gaussians seen by views {i}, {j}")
-            pick = rng.choice(both, MATCHES, replace=False)
+            check(both.size >= matches, f"only {both.size} ray Gaussians seen by views {i}, {j}")
+            pick = rng.choice(both, matches, replace=False)
             pixels[(i, j)] = norm[i][0][pick].astype(np.float32)
             pixels[(j, i)] = norm[j][0][pick].astype(np.float32)
     images = [g.permute(1, 2, 0).cpu().numpy() for g in gts]
@@ -519,7 +662,7 @@ def serving_phases(dev, root) -> dict:
         alpha = out.rendered_alpha
         check(bool((alpha >= 0).all() and (alpha <= 1).all()), f"view {i}: alpha outside [0, 1]")
         check(float(alpha.mean()) > 0.05, f"view {i}: almost nothing rendered")
-    check(launches == {"raster_fwd": VIEWS, "raster_bwd": 0},
+    check(launches == {"raster_fwd": VIEWS, "raster_bwd": 0, "segsum": 0},
           f"serving launched {launches} for {VIEWS} views")
     emit("main_path", views=len(outs), width=W1, height=H1, gaussians=model.total,
          alive=model.num_ray + int(model.bg_alive.sum()), launches=launches,
@@ -531,6 +674,8 @@ def serving_phases(dev, root) -> dict:
     main_cmp = compare_kernel("main_path_view0", proj_main, W1, H1,
                               img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
     main_bwd = compare_backward("main_path_view0", main_cmp, W1, H1)
+    compare_routes("main_path_view0", main_cmp["bins"], main_cmp["attrs"], main_cmp["bg"],
+                   W1, H1, main_bwd["cots"])
 
     # forward kernel timing (CUDA events, median of REPS after a warm-up)
     bins, attrs, kbg = main_cmp["bins"], main_cmp["attrs"], main_cmp["bg"]
@@ -609,7 +754,7 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     model = model_from_numpy(leaves, 3, device=dev)
     gt_model = model_from_numpy(gt_leaves, 3, device=dev)
     cams = view_cameras(W1, H1, TRAIN_VIEWS, dev)
-    bundle, gts = match_bundle_for(gt_model, cams, seed=9)
+    bundle, gts = match_bundle_for(gt_model, cams, seed=9, matches=MATCHES)
     del gt_model
     check(bundle.num_pairs == TRAIN_VIEWS * (TRAIN_VIEWS - 1)
           and bundle.matches_per_pair == MATCHES, "match bundle shape")
@@ -635,7 +780,7 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     launches = dict(raster.LAUNCHES)
     loss_after = view_loss(0)
 
-    check(launches == {"raster_fwd": TRAIN_STEPS, "raster_bwd": TRAIN_STEPS},
+    check(launches == {"raster_fwd": TRAIN_STEPS, "raster_bwd": TRAIN_STEPS, "segsum": 0},
           f"training launched {launches} in {TRAIN_STEPS} steps")
     for it, m in enumerate(metrics, 1):
         for key in ("loss", "l1", "match_loss"):
@@ -662,14 +807,16 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
          view0_loss_before=loss_before, view0_loss_after=loss_after,
          leaves_changed=changed, xyz_gradient_accum_sum=float(model.xyz_gradient_accum.sum()))
 
-    train_breakdown(model, state, bundle, cams[0], gts[0], bg, cfg, extras, bwd_kernel_t)
+    # timed once, in the kernel_time phase at the serving path's view 0
+    train_breakdown("main_path_hybrid", model, state, bundle, cams[0], gts[0], bg, cfg, extras,
+                    {"backward_kernel": dict(bwd_kernel_t, scene="main_path_view0")})
     raster.LAUNCHES.update(launches)  # timing launches do not count
     return launches
 
 
-def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras, bwd_kernel_t) -> None:
+def train_breakdown(name, model, state, bundle, cam, gt, bg, cfg, extras, kernel_rows) -> None:
     """Stage times of one training step on view 0 (CUDA events; the
-    backward kernel's is `bwd_kernel_t`, from the kernel_time phase), the
+    backward's kernel rows `kernel_rows` are timed by the caller), the
     whole step by events and host clock, the device's busy time per step
     from the profiler, and peak memory. Keeps stepping the model
     (iterations from 100 on)."""
@@ -714,8 +861,7 @@ def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras, bwd_kernel_t
         "loss": cuda_times(lambda: loss_only(render_img, depth_img)),
         "forward_whole": cuda_times(lambda: loss_fn(offset())),
         "backward_autograd": cuda_times(backward, setup=graph),
-        # timed once, in the kernel_time phase at the serving path's view 0
-        "backward_kernel": dict(bwd_kernel_t, scene="main_path_view0"),
+        **kernel_rows,
         "adam": cuda_times(lambda: apply_update(model, state, grads, next(it), cfg)),
         "stats": cuda_times(lambda: update_stats(model, out.radii, g_all[-1], W, H)),
     }
@@ -726,10 +872,228 @@ def train_breakdown(model, state, bundle, cam, gt, bg, cfg, extras, bwd_kernel_t
     whole = cuda_times(step)
     host = host_times(step)
     busy = device_busy(step)
-    emit("train_time", scene="main_path_hybrid", width=W, height=H, gaussians=model.total,
+    emit("train_time", scene=name, width=W, height=H, gaussians=model.total,
          entries=bins.num_entries, stages=stages, train_step=whole, train_step_host_ms=host,
          device=busy, device_idle_share=max(0.0, 1.0 - busy["busy_ms"] / host["median_ms"]),
          peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def nerfpp_radius(cams) -> float:
+    """The reference's cameras_extent (`getNerfppNorm`): 1.1 x the largest
+    distance of a camera centre from their mean."""
+    centers = np.stack([c.cam_center.cpu().numpy() for c in cams])
+    return 1.1 * float(np.linalg.norm(centers - centers.mean(0), axis=1).max())
+
+
+def pipeline_phase(dev) -> dict:
+    """Two-stage training at 3840x2160: the ground-truth scene and exact
+    matches, `setup_from_matches`, then PIPE_STEPS iterations of
+    `run_main_stage` with its launch counts checked; then, outside the
+    counted run, the sort route against the atomic one and the segment-sum
+    kernel against its plain version at view 0, the kernel and stage times
+    of one step, and the pipeline's one-off costs. Raises on any failed
+    check; returns the counted launches and the segment sum's numbers."""
+    W, H = PIPE_SIZE
+    num_ray, num_bg, capacity = PIPE_GT
+    # matches lie on the scene's surfaces, as in a capture
+    gt_model = model_from_numpy(hybrid_leaves(num_ray, num_bg, capacity, seed=11, surface=True),
+                                3, device=dev)
+    cams = view_cameras(W, H, TRAIN_VIEWS, dev)
+    bundle, gts = match_bundle_for(gt_model, cams, seed=12, matches=PIPE_MATCHES)
+    del gt_model
+    num_matches = int(bundle.pad_valid.sum())
+    check(num_matches == bundle.num_pairs * PIPE_MATCHES, f"{num_matches} matches")
+    extras = TrainExtras(bg_capacity=PIPE_BG_CAPACITY)
+    cfg = OptimizationConfig(**PIPE_OPT)
+    extent = nerfpp_radius(cams)
+    bg = torch.zeros(3, device=dev)
+
+    # stage 1: init stage -> promote -> create_model
+    z0 = init_zvals(bundle, torch.Generator(device=dev).manual_seed(13))
+    with torch.no_grad():
+        init_first = float(extras.init_loss_scale * matchloss_from_base(z0, bundle)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, init = setup_from_matches(bundle, None, 3, extent, extras=extras,
+                                     init_iterations=PIPE_INIT_ITERS, z0=z0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    promoted = model.num_ray / num_matches
+    emit("pipeline_setup", width=W, height=H, matches=num_matches,
+         init_iterations=PIPE_INIT_ITERS, init_loss_first=init_first,
+         init_loss_final=float(init.final_loss), promoted=model.num_ray,
+         promoted_share=promoted, slots=model.total, bg_capacity=model.bg_capacity,
+         cameras_extent=extent, setup_host_s=setup_s,
+         sort_route=raster.sort_route(model.total, W, H, RasterizerConfig()))
+    check(init.final_loss < init_first, f"init loss {init_first} -> {float(init.final_loss)}")
+    check(promoted >= MIN_PROMOTED, f"only {model.num_ray} of {num_matches} matches promoted")
+    check(model.total > PIPE_MIN_SLOTS and raster.sort_route(model.total, W, H, RasterizerConfig()),
+          f"{model.total} slots do not take the sort route")
+
+    def view_loss(mdl, v):
+        fn = make_camera_loss(mdl, bundle, cams[v], gts[v], v, bg, cfg, RasterizerConfig(),
+                              extras, "cuda", False)
+        with torch.no_grad():
+            return float(fn(torch.zeros(mdl.total, 2, device=dev))[0])
+
+    loss_before = view_loss(model, 0)
+
+    # stage 2: the counted main-stage run
+    log = []
+
+    @torch.no_grad()
+    def record(iteration, mdl, metrics, **_):
+        log.append(dict(
+            iteration=iteration, loss=float(metrics.loss), l1=float(metrics.l1),
+            match_loss=float(metrics.match_loss), visible=int(metrics.num_visible),
+            slots=mdl.total, bg_alive=int(mdl.bg_alive.sum()),
+            max_alive_opacity=float(mdl.get_opacity_raw()[mdl.alive_mask()].max()),
+            sort_route=raster.sort_route(mdl.total, W, H, RasterizerConfig())))
+        if iteration in (EVENT - 1, EVENT):  # just before and just after the event
+            counted = dict(raster.LAUNCHES)
+            log[-1]["view0_loss"] = view_loss(mdl, 0)
+            raster.LAUNCHES.update(counted)  # measurement launches do not count
+
+    torch.cuda.synchronize()
+    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    state = run_main_stage(model, bundle, cams, gts, list(range(TRAIN_VIEWS)), stack_seed=14,
+                           opt_cfg=cfg, extras=extras, cameras_extent=extent,
+                           iterations=PIPE_STEPS, callback=record,
+                           generator=torch.Generator(device=dev).manual_seed(15))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(raster.LAUNCHES)
+    model = state.model
+    loss_after = view_loss(model, 0)
+    event, pre = log[EVENT - 1], log[EVENT - 2]
+    emit("pipeline_main_stage", steps=PIPE_STEPS, launches=launches, run_host_s=run_s,
+         view0_loss_before=loss_before, view0_loss_after=loss_after, log=log,
+         adam_count=state.opt_state.count, optimization=PIPE_OPT)
+    check(launches == dict.fromkeys(KERNELS, PIPE_STEPS),
+          f"the 4K main stage launched {launches} in {PIPE_STEPS} iterations")
+    check(all(math.isfinite(r[k]) for r in log for k in ("loss", "l1", "match_loss")),
+          "a main-stage loss is not finite")
+    check(all(r["sort_route"] for r in log), "an iteration left the sort route")
+    check(event["bg_alive"] != pre["bg_alive"] or event["slots"] > pre["slots"],
+          f"the densify event changed nothing: {pre} -> {event}")
+    check(event["max_alive_opacity"] <= 0.01 + 1e-6,
+          f"opacity {event['max_alive_opacity']} after the reset")
+    # the opacity reset raises the loss by design (every opacity to <= 0.01),
+    # so training is held on each side of it
+    check(pre["view0_loss"] < loss_before,
+          f"view-0 loss {loss_before} before the run, {pre['view0_loss']} before the event")
+    check(loss_after < event["view0_loss"],
+          f"view-0 loss {event['view0_loss']} after the reset, {loss_after} after the run")
+
+    # outside the counted run, at view 0: the forward and the per-entry
+    # backward against their plain versions (which count the work the bounds
+    # price), the sort route against the atomic one, the segment sum
+    before = dict(raster.LAUNCHES)
+    cam = cams[0]
+    with torch.no_grad():
+        proj = project_model(cam, model)
+        cmp4 = compare_kernel("pipeline_4k_view0", proj, W, H,
+                              img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
+        bwd4 = compare_backward("pipeline_4k_view0", cmp4, W, H, per_entry=True)
+        bins, attrs, kbg, T, last = (cmp4[k] for k in ("bins", "attrs", "bg", "T", "last"))
+        cots = bwd4["cots"]
+        compare_routes("pipeline_4k_view0", bins, attrs, kbg, W, H, cots)
+        entries = raster.raster_bwd_entries(bins, attrs, kbg, T, last, *cots, W, H)
+        keys, n = bins.gmaj_ids, attrs.shape[0]
+        vals = raster.gaussian_major(bins, entries)
+        seg = compare_segsum("pipeline_4k_view0", keys, vals, n)
+
+        # kernel and stage times at view 0 (CUDA events)
+        t_fwd = cuda_times(lambda: raster.raster_fwd(bins, attrs, kbg, W, H))
+        t_entries = cuda_times(
+            lambda: raster.raster_bwd_entries(bins, attrs, kbg, T, last, *cots, W, H))
+        t_reorder = cuda_times(lambda: raster.gaussian_major(bins, entries))
+        t_seg = cuda_times(lambda: raster.segsum(keys, vals, n))
+        t_seg_plain = cuda_times(lambda: raster.segsum_plain(keys, vals, n))
+        t_seg_lib = cuda_times(
+            lambda: torch.zeros(n, vals.shape[1], device=dev).index_add_(0, keys, vals))
+        t_atomic = cuda_times(lambda: raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W, H))
+    bounds = {
+        "raster_fwd": kernel_bound_ms(bins, attrs, W, H, cmp4["pairs"]),
+        "raster_bwd_entries": kernel_bound_ms_bwd(bins, attrs, W, H, bwd4["counts"],
+                                                  per_entry=True),
+        "raster_bwd": kernel_bound_ms_bwd(bins, attrs, W, H, bwd4["counts"]),
+        "segsum": segsum_bound_ms(keys.shape[0], vals.shape[1], n),
+    }
+    times = {"raster_fwd": t_fwd, "raster_bwd_entries": t_entries, "raster_bwd": t_atomic,
+             "segsum": t_seg}
+    for kernel, t in times.items():
+        extra = dict(plain=t_seg_plain, library_index_add=t_seg_lib) if kernel == "segsum" else {}
+        emit("kernel_time", kernel=kernel, scene="pipeline_4k_view0", kernel_ms=t,
+             bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], entries=bins.num_entries,
+             gaussians=n, **extra, **(bwd4["counts"] if kernel.startswith("raster_bwd") else {}))
+    raster.LAUNCHES.update(before)  # comparison and timing launches do not count
+    train_breakdown("pipeline_4k", model, state.opt_state, bundle, cam, gts[0], bg, cfg, extras,
+                    {"backward_kernel_per_entry": t_entries, "reorder": t_reorder,
+                     "segsum": t_seg, "backward_kernel_atomic_same_view": t_atomic})
+
+    # the pipeline's one-off costs
+    iters = 50
+    init_part = cuda_times(lambda: run_init_stage(bundle, z0, iterations=iters), reps=1)
+    rayo, rayd, zval, color = promote_matches(bundle, init.best_z, init.min_err)
+    points = torch.as_tensor(rayo + rayd * zval[:, None], device=dev)
+    state_opt = state.opt_state
+
+    def clone_model():
+        return copy.deepcopy(model)
+
+    one_off = {
+        "setup_from_matches_host_s": setup_s,
+        "init_stage_ms_per_iteration": {k: v / iters if k != "reps" else v
+                                        for k, v in init_part.items()},
+        "knn_mean_sq_dist": cuda_times(lambda: knn_mean_sq_dist(points), reps=1),
+        "create_model": cuda_times(lambda: create_model(
+            rayo, rayd, zval, color, 3, extent, bg_capacity=PIPE_BG_CAPACITY, device=dev), reps=1),
+        "densify_and_prune": cuda_times(
+            lambda m: densify_and_prune(m, state_opt, cfg.densify_grad_threshold,
+                                        extras.prune_min_opacity, extent, None, cfg.percent_dense,
+                                        generator=torch.Generator(device=dev).manual_seed(16)),
+            reps=3, setup=clone_model),
+        "reset_opacity": cuda_times(lambda m: reset_opacity(m, state_opt), reps=3,
+                                    setup=clone_model),
+        "main_stage_host_s": run_s,
+    }
+    emit("pipeline_one_off", points=int(points.shape[0]), **one_off)
+    raster.LAUNCHES.update(before)
+    seg_bound, seg_bound_by = bounds["segsum"]
+    return {"launches": launches,
+            "per_launch": {k: (times[k]["median_ms"], bounds[k][0]) for k in times},
+            "segsum": dict(max_abs_err=seg["max_abs_err"], ms=t_seg["median_ms"],
+                           plain_ms=t_seg_plain["median_ms"], bound_ms=seg_bound,
+                           bound_by=seg_bound_by, library_ms=t_seg_lib["median_ms"])}
+
+
+def rank_kernels(serving: dict, train_launches: dict, pipe: dict) -> None:
+    """The order in which the kernels lose the most time on the main paths:
+    first any kernel slower than its library call (by that factor), then by
+    the sum over the paths of launches x (kernel ms - bound ms), each path
+    priced at its own shapes: the 1080p main view for serving and the 1080p
+    steps, view 0 of the 4K pipeline (per-entry backward) for its 12."""
+    lost = {
+        "raster_fwd": (serving["serving_launches"]["raster_fwd"] + train_launches["raster_fwd"])
+        * (serving["raster_fwd"]["ms"] - serving["raster_fwd"]["bound_ms"]),
+        "raster_bwd": train_launches["raster_bwd"]
+        * (serving["raster_bwd"]["ms"] - serving["raster_bwd"]["bound_ms"]),
+        "segsum": 0.0,
+    }
+    for name, per_launch in (("raster_fwd", "raster_fwd"), ("raster_bwd", "raster_bwd_entries"),
+                             ("segsum", "segsum")):
+        ms, bound = pipe["per_launch"][per_launch]
+        lost[name] += pipe["launches"][name] * (ms - bound)
+    seg = pipe["segsum"]
+    library_factor = {"segsum": seg["ms"] / seg["library_ms"]}
+    def rank(k):
+        factor = library_factor.get(k, 0.0)
+        return (0, -factor) if factor > 1.0 else (1, -lost[k])
+
+    order = sorted(KERNELS, key=rank)
+    emit("rule2_ranking", order=order, lost_ms=lost, library_factor=library_factor)
 
 
 def main() -> int:
@@ -748,16 +1112,20 @@ def main() -> int:
     # 2. build every kernel from the checkout's sources
     build_kernels(root)
 
-    # 3. serving: kernels vs plain, tile path vs oracle, 5 views, timings
+    # 3. the segment-sum kernel on the adversarial key layouts
+    for name, (keys, vals, n) in segsum_layouts().items():
+        compare_segsum(name, torch.tensor(keys, device=dev), torch.tensor(vals, device=dev), n)
+
+    # 4. serving: kernels vs plain, routes, tile path vs oracle, 5 views, timings
     with torch.no_grad():
         serving = serving_phases(dev, root)
 
-    # 4. training: 6 steps at 1080p, stage times
+    # 5. one training step: 6 steps at 1080p (atomic route), stage times
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train_launches = training_phase(dev, serving["raster_bwd_times"])
 
-    # 5. the dense 4K serving regime
+    # 6. the dense 4K serving regime
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     W4, H4, _ = DENSE
@@ -766,21 +1134,30 @@ def main() -> int:
         model_4k = model_from_numpy(bench_model_leaves(scene_4k), 3, device=dev)
         render_breakdown("bench_dense", bench_camera(W4, H4, dev), model_4k,
                          torch.zeros(3, device=dev))
+    del scene_4k, model_4k
+
+    # 7. two-stage training at 4K (sort route), stage and one-off times
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = pipeline_phase(dev)
     emit("card_state", nvidia_smi=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
+    rows = {name: dict(serving[name], library_ms=None) for name in ("raster_fwd", "raster_bwd")}
+    rows["segsum"] = pipe["segsum"]
+    # launches over the three main paths: 5 views, 6 steps at 1080p, 12 at 4K
+    launches = {name: serving["serving_launches"][name] + train_launches[name]
+                + pipe["launches"][name] for name in KERNELS}
+    rank_kernels(serving, train_launches, pipe)
+
     print(card, flush=True)
-    sources = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
-               "raster_bwd": "scgaussian_tpu/renderer/tile_raster.py:685"}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"scgaussian_tpu_torch/csrc/{name}.cu",
-        "replaces": sources[name],
-        # the forward's count covers both paths: 5 serving views + 6 steps
-        "launches": serving["serving_launches"][name] + train_launches[name],
-        **{k: serving[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by")},
-        "library_ms": None,
+        "replaces": REPLACES[name],
+        "launches": launches[name],
+        **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
     } for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -61,15 +61,30 @@ class OptimizationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RasterizerConfig:
-    """Rasterizer knobs. Only `tile` (the 16-px CUDA tile) is read here.
+    """Rasterizer knobs: `tile` is the 16-px CUDA tile.
 
-    `entry_budget` and `ptile` are the JAX package's static TPU capacities;
-    they are accepted so configs load in both packages, and ignored: the
-    GPU path sizes its entry buffers per frame and never truncates."""
+    `entry_budget` and `ptile` are the JAX package's TPU capacities. Here
+    they size nothing (the GPU path sizes its entry buffers per frame and
+    never truncates); they decide the backward's route, as in JAX: with an
+    entry budget (`entry_budget`, or `binning.default_entry_budget` of the
+    slot count at the resolved processing tile) of at least
+    `raster.SORT_ROUTE_MIN_L`, per-entry gradients are sorted by Gaussian
+    and summed by the segment-sum kernel (`raster.sort_route`)."""
 
     tile: int = 16
     entry_budget: Optional[int] = None
     ptile: int = 0
+
+    def resolved_ptile(self, width: int, height: int) -> int:
+        """The JAX package's processing tile (`scgaussian_tpu/config.py:
+        80-86`): `ptile` if set, else 2 * tile when the tile grid is at most
+        256 tiles each way, else `tile`."""
+        if self.ptile:
+            return self.ptile
+        fits = (width + self.tile - 1) // self.tile <= 256 and (
+            height + self.tile - 1
+        ) // self.tile <= 256
+        return 2 * self.tile if fits else self.tile
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
-// Backward tile compositing: per-Gaussian gradients of the packed attributes
-// from the cotangents of the image, depth and alpha, one thread per pixel.
+// Backward tile compositing: gradients of the packed attributes, per Gaussian
+// or per tile entry, from the cotangents of the image, depth and alpha, one
+// thread per pixel.
 //
 // Replaces the TPU kernel `_stream_bwd_kernel` / `_stream_bwd_block`
 // (scgaussian_tpu/renderer/tile_raster.py:685-906, launched by
@@ -13,8 +14,13 @@
 //     none.
 // The TPU kernel's carry-free chunk replay, triangular-matmul prefix sums,
 // bf16 splits, pixel-basis moments and gather + cumsum routing were TPU
-// workarounds and are not carried over: the per-Gaussian sum is done here
-// with atomics.
+// workarounds and are not carried over. The kernel has two epilogues:
+//   - `raster_bwd` sums into per-Gaussian rows with atomics (the route below
+//     2^20 entries of budget, where JAX gathers);
+//   - `raster_bwd_entries` writes each entry's 10 sums to its own row of
+//     d_entries [E, 10], as `_stream_bwd_kernel` writes dT [16, L_pad]. The
+//     caller reorders them Gaussian-major and sums them with csrc/segsum.cu
+//     (the route by sort, `_route_by_sort`, 1169-1231).
 //
 // Math, per pixel, over the entries i it blended (w_i = alpha_i T_i,
 // T_{i+1} = T_i (1 - alpha_i), color = sum_i w_i c_i + T_final bg,
@@ -36,11 +42,18 @@
 // shuffles and lane 0 adds them into the batch's per-entry sums in shared
 // memory. After the batch, thread j adds entry j's sums into d_attrs with one
 // global atomicAdd per non-zero column, so global atomics scale with entries,
-// not with pixels. Atomics make the order of the sums vary from run to run.
+// not with pixels; atomics make the order of the sums vary from run to run.
+// The per-entry epilogue is deterministic instead: lane 0 of each warp stores
+// its warp's sums in a slot of its own (so a batch is 128 entries, to keep
+// the 8 warps' slots in 48 KB of shared memory), and after the batch thread j
+// sums the 8 slots of entry j in warp order and stores them in entry j's row
+// with plain stores (an entry belongs to one tile, so no two blocks write a
+// row). Two launches give bitwise-equal rows.
 //
 // Bound on an H100: bytes are the entry ids, the attribute rows (48 B per
 // Gaussian), 28 B per pixel read (final T, last contributor, 5 cotangents)
-// and 48 B per Gaussian written; arithmetic is ~64 fp32 operations and one
+// and 48 B per Gaussian written (40 B per entry in the per-entry epilogue);
+// arithmetic is ~64 fp32 operations and one
 // expf per live (pixel, entry) pair before the pixel's last contributor, and
 // only the liveness test (power; then expf and alpha where power <= 0) per
 // dead one. PERF.md has the measured time beside the bound.
@@ -71,6 +84,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 //   a = (mean x, mean y, conic a, conic b)
 //   b = (conic c, opacity, r, g)
 //   c = (b, depth, 0, 0)
+// kPerEntry: write entry e's sums to d_out[e] (d_out is [E, 10]), summed
+// across warps in a fixed order; otherwise add them into d_out[gauss_ids[e]]
+// with atomics (d_out is [N, 12]).
+template <bool kPerEntry>
 __global__ void __launch_bounds__(kThreads)
 raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
                   const int32_t* __restrict__ gauss_ids,
@@ -82,13 +99,15 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
                   const float* __restrict__ g_color,   // [3, H, W]
                   const float* __restrict__ g_depth,   // [H, W]
                   const float* __restrict__ g_alpha,   // [H, W]
-                  float* __restrict__ d_attrs)         // [N, 12], zeroed
+                  float* __restrict__ d_out)           // zeroed, see kPerEntry
 {
-  __shared__ float4 s_a[kThreads];
-  __shared__ float4 s_b[kThreads];
-  __shared__ float4 s_c[kThreads];
-  __shared__ int32_t s_id[kThreads];
-  __shared__ float s_grad[kGrads][kThreads];
+  constexpr int kBatch = kPerEntry ? kThreads / 2 : kThreads;  // entries per batch
+  constexpr int kSlots = kPerEntry ? kThreads / 32 : 1;         // per-warp or shared sums
+  __shared__ float4 s_a[kBatch];
+  __shared__ float4 s_b[kBatch];
+  __shared__ float4 s_c[kBatch];
+  __shared__ int32_t s_id[kBatch];
+  __shared__ float s_grad[kSlots][kGrads][kBatch];
   __shared__ int s_max_last;
 
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
@@ -99,6 +118,7 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
   const float fy = static_cast<float>(py);
   const int start = tile_starts[tile];
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
   float T = 1.0f, tail = 0.0f;
   float gr = 0.0f, gg = 0.0f, gb = 0.0f, gd = 0.0f;
@@ -120,9 +140,9 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
   __syncthreads();
   const int count = s_max_last;  // entries [start, start + count) may get gradients
 
-  for (int base = ((count - 1) / kThreads) * kThreads; count > 0 && base >= 0;
-       base -= kThreads) {
-    const int n = min(kThreads, count - base);
+  for (int base = ((count - 1) / kBatch) * kBatch; count > 0 && base >= 0;
+       base -= kBatch) {
+    const int n = min(kBatch, count - base);
     __syncthreads();  // the previous batch's flush has read the shared arrays
     if (threadIdx.x < n) {
       const int g = gauss_ids[start + base + threadIdx.x];
@@ -131,8 +151,14 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
       s_b[threadIdx.x] = attrs[3 * g + 1];
       s_c[threadIdx.x] = attrs[3 * g + 2];
     }
+    if constexpr (kPerEntry) {
+      for (int i = threadIdx.x; i < kSlots * kGrads * kBatch; i += kThreads) {
+        (&s_grad[0][0][0])[i] = 0.0f;
+      }
+    } else {
 #pragma unroll
-    for (int k = 0; k < kGrads; ++k) s_grad[k][threadIdx.x] = 0.0f;
+      for (int k = 0; k < kGrads; ++k) s_grad[0][k][threadIdx.x] = 0.0f;
+    }
     __syncthreads();
 
     for (int j = n - 1; j >= 0; --j) {
@@ -180,40 +206,77 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
 #pragma unroll
       for (int k = 0; k < kGrads; ++k) {
         const float s = warp_sum(contrib ? v[k] : 0.0f);
-        if (lane == 0) atomicAdd(&s_grad[k][j], s);
+        if (lane == 0) {
+          if constexpr (kPerEntry) {
+            s_grad[warp][k][j] = s;  // this warp's own slot
+          } else {
+            atomicAdd(&s_grad[0][k][j], s);
+          }
+        }
       }
     }
     __syncthreads();
     if (threadIdx.x < n) {
-      float* dst = d_attrs + static_cast<int64_t>(kRow) * s_id[threadIdx.x];
+      if constexpr (kPerEntry) {
+        float* dst = d_out + static_cast<int64_t>(kGrads) * (start + base + threadIdx.x);
 #pragma unroll
-      for (int k = 0; k < kGrads; ++k) {
-        const float s = s_grad[k][threadIdx.x];
-        if (s != 0.0f) atomicAdd(dst + k, s);
+        for (int k = 0; k < kGrads; ++k) {
+          float s = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kSlots; ++w) s += s_grad[w][k][threadIdx.x];  // warp order
+          dst[k] = s;
+        }
+      } else {
+        float* dst = d_out + static_cast<int64_t>(kRow) * s_id[threadIdx.x];
+#pragma unroll
+        for (int k = 0; k < kGrads; ++k) {
+          const float s = s_grad[0][k][threadIdx.x];
+          if (s != 0.0f) atomicAdd(dst + k, s);
+        }
       }
     }
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). `d_attrs` must be zeroed by the
-// caller. Launches on `stream`, never synchronises, and returns
-// cudaGetLastError() (0 on success).
-extern "C" int raster_bwd(const void* tile_starts, const void* gauss_ids,
-                          const void* attrs, const void* bg,
-                          int width, int height,
-                          const void* T_final, const void* last,
-                          const void* g_color, const void* g_depth,
-                          const void* g_alpha, void* d_attrs, void* stream) {
+template <bool kPerEntry>
+int launch(const void* tile_starts, const void* gauss_ids, const void* attrs,
+           const void* bg, int width, int height, const void* T_final,
+           const void* last, const void* g_color, const void* g_depth,
+           const void* g_alpha, void* d_out, void* stream) {
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
-  raster_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_bwd_kernel<kPerEntry><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tile_starts),
       static_cast<const int32_t*>(gauss_ids),
       static_cast<const float4*>(attrs), static_cast<const float*>(bg),
       width, height, static_cast<const float*>(T_final),
       static_cast<const int32_t*>(last), static_cast<const float*>(g_color),
       static_cast<const float*>(g_depth), static_cast<const float*>(g_alpha),
-      static_cast<float*>(d_attrs));
+      static_cast<float*>(d_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). The output must be zeroed by
+// the caller: `d_attrs` [N, 12] for `raster_bwd`, `d_entries` [E, 10] for
+// `raster_bwd_entries`. Each launches on `stream`, never synchronises, and
+// returns cudaGetLastError() (0 on success).
+extern "C" int raster_bwd(const void* tile_starts, const void* gauss_ids,
+                          const void* attrs, const void* bg,
+                          int width, int height,
+                          const void* T_final, const void* last,
+                          const void* g_color, const void* g_depth,
+                          const void* g_alpha, void* d_attrs, void* stream) {
+  return launch<false>(tile_starts, gauss_ids, attrs, bg, width, height, T_final,
+                       last, g_color, g_depth, g_alpha, d_attrs, stream);
+}
+
+extern "C" int raster_bwd_entries(const void* tile_starts, const void* gauss_ids,
+                                  const void* attrs, const void* bg,
+                                  int width, int height,
+                                  const void* T_final, const void* last,
+                                  const void* g_color, const void* g_depth,
+                                  const void* g_alpha, void* d_entries, void* stream) {
+  return launch<true>(tile_starts, gauss_ids, attrs, bg, width, height, T_final,
+                      last, g_color, g_depth, g_alpha, d_entries, stream);
 }

@@ -13,6 +13,9 @@ fixed capacity, alive mask and densification statistics:
   (`xyz_gradient_accum`, `denom`, `max_radii2d`), buffers that
   `model.densify.update_stats` accumulates into in place.
 
+`create_model` builds the model from promoted match rays
+(`create_from_pcd`, `scene/gaussian_model.py:362-468`).
+
 The 12 `GaussianParams` leaves of the JAX model are this module's
 parameters under the same names. Activations follow
 `scene/gaussian_model.py:36-51`: exp scaling, sigmoid opacity, normalized
@@ -31,6 +34,8 @@ from torch import nn
 
 from scgaussian_tpu_torch import resolve_device
 from scgaussian_tpu_torch.core import transforms
+from scgaussian_tpu_torch.core.sh import rgb_to_sh
+from scgaussian_tpu_torch.model.knn import knn_mean_sq_dist
 
 # coefficient band sizes for SH degrees 1..3 within f_rest (15 coeffs at deg 3)
 _SH_BANDS = [(0, 3, 1), (3, 8, 2), (8, 15, 3)]  # (start, end, required degree)
@@ -183,3 +188,53 @@ def model_from_numpy(
         raise ValueError(f"missing model leaves: {missing}")
     tensors = {n: torch.tensor(np.asarray(leaves[n]), device=dev) for n in leaves}
     return GaussianModel(tensors, max_sh_degree, spatial_lr_scale)
+
+
+def create_model(
+    rayo: np.ndarray,
+    rayd: np.ndarray,
+    zval: np.ndarray,
+    colors: np.ndarray,
+    max_sh_degree: int,
+    spatial_lr_scale: float,
+    bg_capacity: int = 65536,
+    initial_opacity: float = 0.1,
+    device: str | torch.device | None = None,
+) -> GaussianModel:
+    """The hybrid model from promoted match points (port of JAX
+    `create_model`, `scgaussian_tpu/model/gaussians.py:158-220`; reference
+    `create_from_pcd`): SH DC from the warped match colors, log-scale from
+    the 3-NN mean squared distance (`knn_mean_sq_dist`, floored at 1e-7),
+    identity rotations, opacity `initial_opacity`, `bg_capacity` dead
+    background slots, zero densify statistics. Runs on `device` (default:
+    the GPU)."""
+    dev = resolve_device(device)
+    nr = zval.shape[0]
+    k_coeffs = (max_sh_degree + 1) ** 2
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    points = torch.as_tensor(np.asarray(rayo + rayd * zval.reshape(-1, 1), np.float32),
+                             device=dev)
+    dist2 = torch.clamp(knn_mean_sq_dist(points, 3), min=1e-7)
+    scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], **f32)
+    cb = bg_capacity
+    leaves = dict(
+        zval=torch.as_tensor(np.asarray(zval, np.float32).reshape(-1, 1), device=dev),
+        f_dc=rgb_to_sh(torch.as_tensor(np.asarray(colors, np.float32), device=dev))[:, None, :],
+        f_rest=torch.zeros(nr, k_coeffs - 1, 3, **f32),
+        scaling=scales,
+        rotation=identity.repeat(nr, 1),
+        opacity=transforms.inverse_sigmoid(torch.full((nr, 1), initial_opacity, **f32)),
+        bg_xyz=torch.zeros(cb, 3, **f32),
+        bg_f_dc=torch.zeros(cb, 1, 3, **f32),
+        bg_f_rest=torch.zeros(cb, k_coeffs - 1, 3, **f32),
+        bg_scaling=torch.full((cb, 3), -10.0, **f32),
+        bg_rotation=identity.repeat(cb, 1),
+        bg_opacity=torch.full((cb, 1), -10.0, **f32),
+        rayo=torch.as_tensor(np.asarray(rayo, np.float32), device=dev),
+        rayd=torch.as_tensor(np.asarray(rayd, np.float32), device=dev),
+        bg_alive=torch.zeros(cb, dtype=torch.bool, device=dev),
+        active_sh_degree=torch.tensor(0, dtype=torch.int32, device=dev),
+    )
+    return GaussianModel(leaves, max_sh_degree, spatial_lr_scale)

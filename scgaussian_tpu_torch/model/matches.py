@@ -1,24 +1,25 @@
 """Match-prior data and the structure-consistency loss on rendered depth.
 
-Port of the parts of `scgaussian_tpu/model/matches.py` that the main-stage
-training step uses (26-142, 154-166, 195-236): `MatchBundle`, the padded
+Port of `scgaussian_tpu/model/matches.py`: `MatchBundle`, the padded
 per-ordered-pair match data (one [P = V*(V-1), M] layout instead of the
 reference's dict of per-pair tensors, `scene/gaussian_model.py:284-360`),
-its host-side construction, and `matchloss_from_renderdepth`
-(`scene/gaussian_model.py:241-282`). `init_zvals`, `matchloss_from_base`,
-the init stage and `promote_matches` are not ported yet.
+its host-side construction, the init stage (`init_zvals`,
+`matchloss_from_base`, `run_init_stage`, `promote_matches`; `train.py:49-97`,
+`scene/gaussian_model.py:175-239, 394-395`) and `matchloss_from_renderdepth`
+(`scene/gaussian_model.py:241-282`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from scgaussian_tpu_torch import resolve_device
 from scgaussian_tpu_torch.losses.sampling import grid_sample_2d
+from scgaussian_tpu_torch.train import optim
 
 _TENSOR_FIELDS = (
     "rays_o", "rays_d", "cam_rays_d", "uv", "color", "mask", "pad_valid", "near_far",
@@ -160,6 +161,16 @@ def build_match_bundle(
     return bundle_from_numpy(fields, device)
 
 
+def init_zvals(bundle: MatchBundle, generator: torch.Generator) -> torch.Tensor:
+    """z ~ U(near, far) per match (`scene/gaussian_model.py:339-340`), [P, M]
+    on the bundle's device, drawn from `generator` (on that device)."""
+    P, M = bundle.mask.shape
+    u = torch.rand(P, M, generator=generator, device=bundle.mask.device)
+    near = bundle.near_far[:, 0:1]
+    far = bundle.near_far[:, 1:2]
+    return u * (far - near) + near
+
+
 def _project_to_view(bundle: MatchBundle, world_pts: torch.Tensor, view: torch.Tensor):
     """world_pts [..., M, 3] -> pixel xy + depth in `view` (w2c then K), in
     full fp32 (TF32 is off package-wide)."""
@@ -211,3 +222,95 @@ def matchloss_from_renderdepth(
     w = (in_bounds & valid).to(torch.float32)
     per_pair = torch.sum(err * w, dim=1) / (torch.sum(w, dim=1) + 1e-8)
     return torch.sum(per_pair)
+
+
+def matchloss_from_base(
+    zvals: torch.Tensor, bundle: MatchBundle
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric cross-view reprojection error of matched ray points.
+
+    Matches `get_matchloss_from_base` (`scene/gaussian_model.py:175-239`):
+    per ordered pair, lift matched rays at current z, project into the
+    partner view, compare to the partner's match UVs normalized by (W, H);
+    the loss sums the masked means of both directions of every unordered
+    pair == the masked mean over every ordered pair.
+
+    Returns (total_loss, per_match_error [P, M])."""
+    world = bundle.rays_o + bundle.rays_d * zvals[..., None]  # [P, M, 3]
+    xy, _ = _project_to_view(bundle, world, bundle.dst)
+    uv_partner = bundle.uv[bundle.partner]  # [P, M, 2]
+    wh = torch.tensor([bundle.width, bundle.height], dtype=torch.float32, device=xy.device)
+    err = torch.mean(torch.abs(xy - uv_partner) / wh, dim=-1)  # [P, M]
+
+    valid = (bundle.mask * bundle.mask[bundle.partner]) > 0
+    num = torch.sum(torch.where(valid, err, 0.0), dim=1)
+    den = torch.clamp(torch.sum(valid, dim=1), min=1)
+    return torch.sum(num / den), err
+
+
+@dataclasses.dataclass(frozen=True)
+class InitStageResult:
+    best_z: torch.Tensor  # [P, M]
+    min_err: torch.Tensor  # [P, M]
+    final_loss: torch.Tensor  # []
+
+
+def run_init_stage(
+    bundle: MatchBundle,
+    z0: torch.Tensor,
+    iterations: int = 2000,
+    base_lr: float = 0.5,
+    lr_drop_iters: Sequence[int] = (500, 1000, 1500),
+    loss_scale: float = 5.0,
+) -> InitStageResult:
+    """The match-prior z optimization (`train.py:49-97`), a Python loop in
+    place of JAX's scan: Adam with torch semantics (eps 1e-15, lr 0.5
+    halved at 500/1000/1500) on loss = 5 * matchloss, with each match's best
+    z tracked under the running minimum reprojection error *before* each
+    step (replaced only where the error is strictly lower). `final_loss` is
+    the last iteration's loss, before its step."""
+    z = z0.detach().to(torch.float32)
+    state = optim.init({"z": z})
+    best_z = z.clone()
+    min_err = torch.full_like(z, float("inf"))
+    loss = torch.zeros((), dtype=torch.float32, device=z.device)
+    for it in range(iterations):
+        zz = z.detach().requires_grad_()
+        with torch.enable_grad():
+            loss, err = matchloss_from_base(zz, bundle)
+            loss = loss_scale * loss
+            (g,) = torch.autograd.grad(loss, zz)
+        with torch.no_grad():
+            err = err.detach()
+            better = err < min_err
+            best_z = torch.where(better, z, best_z)
+            min_err = torch.where(better, err, min_err)
+            lr = base_lr * 0.5 ** sum(it >= d for d in lr_drop_iters)
+            new, state = optim.apply({"z": z}, {"z": g}, state, {"z": lr})
+            z = new["z"]
+    return InitStageResult(best_z=best_z, min_err=min_err, final_loss=loss.detach())
+
+
+def promote_matches(
+    bundle: MatchBundle,
+    best_z: torch.Tensor | np.ndarray,
+    min_err: torch.Tensor | np.ndarray,
+    err_threshold: float = 0.1,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Select converged matches as ray-Gaussian seeds (host side, once).
+
+    Matches `create_from_pcd`'s vmask filter (`scene/gaussian_model.py:
+    394-395`): keep matches whose best reprojection error < 0.1 (the warp
+    mask is NOT part of the filter in the reference, only padding is
+    excluded), concatenated in ordered-pair order.
+    Returns (rayo, rayd, zval, color) numpy arrays."""
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    sel = ((host(min_err) < err_threshold) & host(bundle.pad_valid)).reshape(-1)
+    rayo = host(bundle.rays_o).reshape(-1, 3)[sel]
+    rayd = host(bundle.rays_d).reshape(-1, 3)[sel]
+    z = host(best_z).reshape(-1)[sel]
+    color = host(bundle.color).reshape(-1, 3)[sel]
+    return rayo, rayd, z, color

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from scgaussian_tpu_torch.config import RasterizerConfig
 from scgaussian_tpu_torch.core.cameras import Camera
 from scgaussian_tpu_torch.renderer import oracle as oracle_mod
 from scgaussian_tpu_torch.renderer import project as project_mod
@@ -59,10 +60,12 @@ def render(
     """Render one view. `backend` is "cuda" (tile pipeline) or "oracle".
 
     `entry_budget`, `aligned_budget`, `ptile` and `tile_cull` are the JAX
-    package's TPU capacity and layout knobs. They are accepted so callers
-    of either package pass the same arguments, and ignored: the CUDA path
-    sizes its buffers per frame and bins on the 16-px tile."""
-    del entry_budget, aligned_budget, ptile, tile_cull
+    package's TPU capacity and layout knobs, accepted so callers of either
+    package pass the same arguments. The CUDA path sizes its buffers per
+    frame and bins on the 16-px tile; `entry_budget` and `ptile` decide its
+    backward's route, as in JAX (`raster.sort_route`), and the other two
+    are ignored."""
+    del aligned_budget, tile_cull
     proj = project_mod.project(
         camera,
         means3d,
@@ -83,8 +86,9 @@ def render(
             proj, camera.width, camera.height, bg_color, tile=tile
         )
     elif backend == "cuda":
+        config = RasterizerConfig(tile=tile, entry_budget=entry_budget, ptile=ptile or 0)
         img, dep, alp = raster.rasterize(
-            proj, camera.width, camera.height, bg_color, tile=tile
+            proj, camera.width, camera.height, bg_color, tile=tile, config=config
         )
     else:
         raise ValueError(f"unknown backend: {backend!r}")

@@ -16,7 +16,16 @@ budgets, processing tiles and segment alignment are TPU-only:
   4. per-tile [start, end) ranges from a bincount + cumsum.
 
 Buffers are sized exactly per frame (one host sync reads the entry count),
-so nothing is ever truncated.
+so nothing is ever truncated. `default_entry_budget` (the JAX package's
+budget rule) sizes nothing here; it decides the backward's route
+(`raster.sort_route`).
+
+The bins keep the entries' Gaussian-major order beside the sorted one:
+before the sort the entries are laid out Gaussian by Gaussian, so
+`gmaj_ids` is non-decreasing, and `order` maps each sorted slot to its
+Gaussian-major slot. The sort-route backward reorders per-entry gradients
+with `order` and sums runs of equal `gmaj_ids` (`raster.segsum`), without
+a second sort.
 """
 
 from __future__ import annotations
@@ -37,10 +46,20 @@ class TileBins:
     tile_starts: torch.Tensor  # [T + 1] int32
     nx: int  # tiles per row
     ny: int  # tile rows
+    gmaj_ids: torch.Tensor  # [L] int32 Gaussian per Gaussian-major slot, non-decreasing
+    order: torch.Tensor  # [L] int64: sorted slot -> Gaussian-major slot
 
     @property
     def num_entries(self) -> int:
         return self.gauss_ids.shape[0]
+
+
+def default_entry_budget(n: int, ptile_factor: int = 1) -> int:
+    """The JAX package's tile-entry budget for n primitives
+    (`scgaussian_tpu/renderer/binning.py:83-102`): the next power of two
+    >= max(4n / ptile_factor, 16384)."""
+    want = max(4 * n // max(ptile_factor, 1), 1 << 14)
+    return 1 << (want - 1).bit_length()
 
 
 def bin_gaussians(
@@ -76,9 +95,12 @@ def bin_gaussians(
         counts = torch.bincount(tile_id, minlength=num_tiles)
         starts = torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev)
         starts[1:] = torch.cumsum(counts, 0)
+        gid = gid.to(torch.int32)
     return TileBins(
-        gauss_ids=gid[order].to(torch.int32).contiguous(),
+        gauss_ids=gid[order].contiguous(),
         tile_starts=starts,
         nx=nx,
         ny=ny,
+        gmaj_ids=gid,
+        order=order,
     )

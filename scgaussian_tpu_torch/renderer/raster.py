@@ -3,17 +3,24 @@
 Port of `scgaussian_tpu/renderer/tile_raster.py::rasterize` (204-293) and of
 `stream_gather_composite` with its custom VJP (998-1031, 1234-1308). The
 TPU's Pallas stream kernels, the untiling (`assemble_image`) and the
-backward's entry -> Gaussian routing become two hand-written CUDA kernels:
-`csrc/raster_fwd.cu` writes the image directly, `csrc/raster_bwd.cu` writes
-per-Gaussian gradients of the packed attribute rows.
+backward's entry -> Gaussian routing become three hand-written CUDA kernels:
+`csrc/raster_fwd.cu` writes the image directly; `csrc/raster_bwd.cu` writes
+gradients of the packed attribute rows, per Gaussian (atomics) or per tile
+entry; `csrc/segsum.cu` sums key-sorted per-entry rows per Gaussian.
 
-`raster_fwd` and `raster_bwd` are the wrappers: on CUDA tensors they launch
-their kernel (and count the launch in `LAUNCHES`), on CPU tensors they run
-`raster_fwd_plain` / `raster_bwd_plain`, the same arithmetic in PyTorch ops
-over the same bins. There is no other fallback: a CUDA tensor never reaches
-a plain version through a wrapper, and a build or launch failure raises.
-`rasterize` is differentiable through `RasterizeFn`, whose backward is
-`raster_bwd`.
+The backward routes as the JAX package does (`_stream_gather_bwd`,
+1254-1255): below an entry budget of `SORT_ROUTE_MIN_L` the kernel's atomic
+epilogue sums per Gaussian; at or above it (`sort_route`), the kernel writes
+per-entry gradients, which are put into Gaussian-major order and summed by
+`segsum`, with no atomics.
+
+`raster_fwd`, `raster_bwd`, `raster_bwd_entries` and `segsum` are the
+wrappers: on CUDA tensors they launch their kernel (and count the launch in
+`LAUNCHES`; both backward epilogues count as "raster_bwd"), on CPU tensors
+they run the plain versions, the same arithmetic in PyTorch ops. There is
+no other fallback: a CUDA tensor never reaches a plain version through a
+wrapper, and a build or launch failure raises. `rasterize` is
+differentiable through `RasterizeFn`.
 """
 
 from __future__ import annotations
@@ -25,16 +32,20 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from scgaussian_tpu_torch.config import RasterizerConfig
 from scgaussian_tpu_torch.renderer import _build
-from scgaussian_tpu_torch.renderer.binning import TileBins, bin_gaussians
+from scgaussian_tpu_torch.renderer.binning import TileBins, bin_gaussians, default_entry_budget
 from scgaussian_tpu_torch.renderer.oracle import ALPHA_MAX, ALPHA_MIN, T_EPS
 from scgaussian_tpu_torch.renderer.project import ProjectedGaussians
 
 TILE = 16  # the kernel's tile: one 16x16 block of threads per tile
 ATTR_WIDTH = 12  # packed attribute row, 3 float4 (see csrc/raster_fwd.cu)
+NUM_GRADS = 10  # gradient columns: mean x/y, conic a/b/c, opacity, rgb, depth
+# entry budget from which the backward routes by sort (tile_raster.py:1033)
+SORT_ROUTE_MIN_L = 1 << 20
 
 # Kernel launches since import, by kernel. Only the wrappers add to it.
-LAUNCHES = {"raster_fwd": 0, "raster_bwd": 0}
+LAUNCHES = {"raster_fwd": 0, "raster_bwd": 0, "segsum": 0}
 
 RasterOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -254,30 +265,138 @@ def raster_bwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
 
 
 @functools.cache
-def _raster_bwd_fn():
-    fn = _build.load("raster_bwd").raster_bwd
+def _raster_bwd_fn(entry: str):
+    """`raster_bwd` (atomic epilogue) or `raster_bwd_entries` (per-entry)."""
+    fn = getattr(_build.load("raster_bwd"), entry)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     return fn
 
 
 def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
-                     width, height) -> torch.Tensor:
-    fn = _raster_bwd_fn()
+                     width, height, per_entry: bool = False) -> torch.Tensor:
+    fn = _raster_bwd_fn("raster_bwd_entries" if per_entry else "raster_bwd")
     dev = attrs.device
+    shape = (bins.num_entries, NUM_GRADS) if per_entry else (attrs.shape[0], ATTR_WIDTH)
     with torch.cuda.device(dev):
-        d_attrs = torch.zeros(attrs.shape[0], ATTR_WIDTH, dtype=torch.float32, device=dev)
+        d_out = torch.zeros(shape, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             bins.tile_starts.data_ptr(), bins.gauss_ids.data_ptr(),
             attrs.data_ptr(), bg.data_ptr(), width, height,
             T_final.data_ptr(), last.data_ptr(), g_color.data_ptr(),
-            g_depth.data_ptr(), g_alpha.data_ptr(), d_attrs.data_ptr(), stream,
+            g_depth.data_ptr(), g_alpha.data_ptr(), d_out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
     LAUNCHES["raster_bwd"] += 1
-    return d_attrs
+    return d_out
+
+
+# ---------------- segment sum and the route by sort ----------------
+
+def segsum(keys: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-key sums of key-sorted rows: [n, C] float32, row g the sum of
+    the rows of `vals` [E, C] float32 whose key (`keys` [E] int32,
+    non-decreasing) is g, 0 for absent keys. Rows with a key >= n are
+    ignored, NaN included. The kernel needs 1 <= C <= 16."""
+    if keys.device != vals.device:
+        raise ValueError(f"keys are on {keys.device}, vals on {vals.device}")
+    if keys.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise ValueError(f"keys must be int32 and vals float32, got {keys.dtype}, {vals.dtype}")
+    if keys.dim() != 1 or vals.dim() != 2 or vals.shape[0] != keys.shape[0]:
+        raise ValueError(f"keys [E] and vals [E, C] expected, got {tuple(keys.shape)}, "
+                         f"{tuple(vals.shape)}")
+    if not 1 <= vals.shape[1] <= 16:
+        raise ValueError(f"vals must have 1 to 16 columns, got {vals.shape[1]}")
+    if not (keys.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("keys and vals must be contiguous")
+    if vals.device.type == "cpu":
+        return segsum_plain(keys, vals, n)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no segment sum for device {vals.device}")
+    return _segsum_cuda(keys, vals, n)
+
+
+@functools.cache
+def _segsum_fn():
+    fn = _build.load("segsum").segsum
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _segsum_cuda(keys, vals, n) -> torch.Tensor:
+    dev = vals.device
+    if n == 0:  # nothing to launch
+        return torch.empty(0, vals.shape[1], dtype=torch.float32, device=dev)
+    fn = _segsum_fn()
+    with torch.cuda.device(dev):
+        out = torch.empty(n, vals.shape[1], dtype=torch.float32, device=dev)  # every row written
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(keys.data_ptr(), vals.data_ptr(), keys.shape[0], n, vals.shape[1],
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
+    LAUNCHES["segsum"] += 1
+    return out
+
+
+def segsum_plain(keys: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """The segment sum in PyTorch ops: rows with a key >= n are zeroed with
+    a select (they may hold NaN), then `index_add_` into [n + 1, C] with
+    those keys sent to row n, which is dropped."""
+    k = keys.to(torch.int64)
+    sent = k >= n
+    v = torch.where(sent[:, None], torch.zeros((), dtype=vals.dtype, device=vals.device), vals)
+    out = torch.zeros(n + 1, vals.shape[1], dtype=vals.dtype, device=vals.device)
+    out.index_add_(0, torch.where(sent, n, k), v)
+    return out[:n]
+
+
+def sort_route(n_slots: int, width: int, height: int, config: RasterizerConfig) -> bool:
+    """Whether the backward routes by sort: the JAX package's rule
+    (`tile_raster.py:1254-1255`), on the entry budget it would size for
+    `n_slots` Gaussian slots at this image size, `config.entry_budget` or
+    `default_entry_budget(n_slots, resolved_ptile // tile)`. With the
+    default config that is the case above 262,144 slots below 4096 px."""
+    budget = config.entry_budget or default_entry_budget(
+        n_slots, config.resolved_ptile(width, height) // config.tile)
+    return budget >= SORT_ROUTE_MIN_L
+
+
+def gaussian_major(bins: TileBins, d_entries: torch.Tensor) -> torch.Tensor:
+    """Per-entry rows of `bins.gauss_ids`' order put into Gaussian-major
+    order, where the keys `bins.gmaj_ids` are sorted: row `order[e]` takes
+    row e."""
+    return torch.empty_like(d_entries).index_copy_(0, bins.order, d_entries)
+
+
+def route_by_sort(bins: TileBins, d_entries: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-entry gradients [E, 10] -> per-Gaussian rows [n, 12] (columns
+    10-11 zero): reorder Gaussian-major, then `segsum` (the port of
+    `_route_by_sort`, `tile_raster.py:1169-1231`)."""
+    d = segsum(bins.gmaj_ids, gaussian_major(bins, d_entries), n)
+    return F.pad(d, (0, ATTR_WIDTH - NUM_GRADS))
+
+
+def raster_bwd_entries(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
+                       T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
+                       g_depth: torch.Tensor, g_alpha: torch.Tensor,
+                       width: int, height: int) -> torch.Tensor:
+    """`raster_bwd` with the per-entry epilogue: d_entries [E, 10] float32,
+    row e holding entry e's (of `bins.gauss_ids`) gradient terms summed over
+    the pixels of its tile, in the columns of `raster_bwd`. Deterministic:
+    each entry belongs to one tile, so no atomics are needed."""
+    _check_inputs(bins, attrs, bg, width, height)
+    _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
+    if attrs.device.type == "cpu":
+        return raster_bwd_entries_plain(bins, attrs, bg, T_final, last, g_color, g_depth,
+                                        g_alpha, width, height)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"no rasterizer for device {attrs.device}")
+    return _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
+                            width, height, per_entry=True)
 
 
 def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
@@ -285,7 +404,7 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                      g_depth: torch.Tensor, g_alpha: torch.Tensor,
                      width: int, height: int, stats: dict | None = None) -> torch.Tensor:
     """The backward kernel's arithmetic in PyTorch ops (hand-derived, no
-    autograd).
+    autograd), atomic epilogue: per-Gaussian rows [N, 12].
 
     All tiles step together from the back, one entry of each tile's range
     per step, over a [tiles, 256] pixel state: T is recovered from the
@@ -299,10 +418,31 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     bound counts: "live_pairs" (the whole gradient chain), "faint_pairs"
     (power <= 0 but alpha < 1/255: power, exp and alpha only) and
     "far_pairs" (power > 0: power only)."""
+    d = _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
+                   width, height, False, stats)
+    return torch.cat([d, torch.zeros_like(d[:, :2])], dim=1)
+
+
+def raster_bwd_entries_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
+                             T_final: torch.Tensor, last: torch.Tensor,
+                             g_color: torch.Tensor, g_depth: torch.Tensor,
+                             g_alpha: torch.Tensor, width: int, height: int,
+                             stats: dict | None = None) -> torch.Tensor:
+    """`raster_bwd_plain` with the per-entry epilogue: each step's per-tile
+    sums go to their entry's row by position (`index_copy_`), not into the
+    Gaussian's row. Returns d_entries [E, 10], zero for entries no pixel
+    reached."""
+    return _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
+                      width, height, True, stats)
+
+
+def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
+               width, height, per_entry: bool, stats) -> torch.Tensor:
     dev = attrs.device
     nx, ny = bins.nx, bins.ny
     num_tiles = nx * ny
     starts = bins.tile_starts[:-1].to(torch.int64)
+    counts_t = bins.tile_starts[1:].to(torch.int64) - starts
     px, py = _tile_pixels(nx, ny, dev)
 
     def tiles(x, fill):  # [..., H, W] -> [..., T, 256], padding with `fill`
@@ -316,7 +456,8 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     gC = tiles(g_color, 0.0)  # [3, T, 256]
     gD = tiles(g_depth, 0.0)
     tail = T * (gC[0] * bg[0] + gC[1] * bg[1] + gC[2] * bg[2] - tiles(g_alpha, 0.0))
-    d = torch.zeros(attrs.shape[0], 10, dtype=torch.float32, device=dev)
+    rows = bins.num_entries if per_entry else attrs.shape[0]
+    d = torch.zeros(rows, NUM_GRADS, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)  # live, faint, far
 
@@ -324,7 +465,8 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     steps = int(last_t.max()) if last_t.numel() else 0
     for k in reversed(range(steps)):
         active = k < last_t  # [T, 256]
-        g = bins.gauss_ids[torch.clamp(starts + k, max=n_entries - 1)].long()
+        pos = starts + k
+        g = bins.gauss_ids[torch.clamp(pos, max=n_entries - 1)].long()
         a = attrs[g]  # [T, 12]
         dx = a[:, 0:1] - px
         dy = a[:, 1:2] - py
@@ -358,25 +500,33 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         ], dim=-1)  # [T, 256, 10]
         # select, not multiply: G overflows to inf on dead entries with power > 0
         terms = torch.where(live[..., None], terms, zero)
-        d.index_add_(0, g, terms.sum(1))
+        sums = terms.sum(1)  # [T, 10]
+        if per_entry:
+            has = k < counts_t  # tiles whose range holds an entry k
+            d.index_copy_(0, pos[has], sums[has])
+        else:
+            d.index_add_(0, g, sums)
     if stats is not None:
         stats.update(zip(("live_pairs", "faint_pairs", "far_pairs"), counts.tolist()))
-    return torch.cat([d, torch.zeros_like(d[:, :2])], dim=1)
+    return d
 
 
 class RasterizeFn(torch.autograd.Function):
     """Differentiable compositing of packed attribute rows over fixed bins:
     forward `raster_fwd` (saving the final T and last contributor), backward
-    `raster_bwd`. On CPU tensors both run their plain versions, so the
-    forward builds no graph and the hand-derived backward is the one used."""
+    `raster_bwd` (atomic epilogue), or with `by_sort` `raster_bwd_entries`
+    then `route_by_sort`. On CPU tensors all of them run their plain
+    versions, so the forward builds no graph and the hand-derived backward
+    is the one used."""
 
     @staticmethod
     def forward(ctx, attrs: torch.Tensor, bg: torch.Tensor, bins: TileBins,
-                width: int, height: int):
+                width: int, height: int, by_sort: bool = False):
         color, depth, alpha, T, last = raster_fwd(bins, attrs, bg, width, height)
         ctx.save_for_backward(attrs, bg, T, last)
         ctx.bins = bins
         ctx.size = (width, height)
+        ctx.by_sort = by_sort
         return color, depth, alpha
 
     @staticmethod
@@ -391,11 +541,14 @@ class RasterizeFn(torch.autograd.Function):
             return g.to(torch.float32).contiguous()
 
         g_color = cot(g_color, 3, height, width)
-        d_attrs = raster_bwd(ctx.bins, attrs, bg, T, last, g_color,
-                             cot(g_depth, height, width), cot(g_alpha, height, width),
-                             width, height)
+        args = (ctx.bins, attrs, bg, T, last, g_color, cot(g_depth, height, width),
+                cot(g_alpha, height, width), width, height)
+        if ctx.by_sort:
+            d_attrs = route_by_sort(ctx.bins, raster_bwd_entries(*args), attrs.shape[0])
+        else:
+            d_attrs = raster_bwd(*args)
         d_bg = (g_color * T).sum((1, 2)) if ctx.needs_input_grad[1] else None
-        return d_attrs, d_bg, None, None, None
+        return d_attrs, d_bg, None, None, None, None
 
 
 def rasterize(
@@ -404,15 +557,18 @@ def rasterize(
     height: int,
     bg_color: torch.Tensor,
     tile: int = TILE,
+    config: RasterizerConfig = RasterizerConfig(),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full tile pipeline: bin -> composite, differentiable with respect to
     the projected attributes (and the background). Returns (color [3, H, W],
     depth [1, H, W], alpha [1, H, W]). Nothing is budgeted, so nothing is
-    ever dropped."""
+    ever dropped; `config` decides the backward's route (`sort_route`, from
+    the number of projected Gaussians)."""
     if tile != TILE:
         raise ValueError(f"the tile rasterizer works on {TILE}-px tiles, got {tile}")
     bins = bin_gaussians(proj, width, height, TILE)
     attrs = pack_attrs(proj)
     bg = bg_color.to(device=attrs.device, dtype=torch.float32).contiguous()
-    color, depth, alpha = RasterizeFn.apply(attrs, bg, bins, width, height)
+    by_sort = sort_route(attrs.shape[0], width, height, config)
+    color, depth, alpha = RasterizeFn.apply(attrs, bg, bins, width, height, by_sort)
     return color, depth[None], alpha[None]

@@ -3,8 +3,7 @@
 Port of `scgaussian_tpu/train/main_stage.py:39-291`: `render_model` and one
 main-stage `train_step` (render -> loss -> gradients -> dual Adam update ->
 densify statistics), the body of `training()`'s main loop
-(`train.py:99-212`). The loop around it (densify_and_prune, reset_opacity,
-the pipeline) is not ported yet.
+(`train.py:99-212`). The loop around it is `train/pipeline.py`.
 
 Loss (matching `train.py:143-168`):
     (1 - lambda_dssim) L1 + lambda_dssim (1 - SSIM)
@@ -53,7 +52,8 @@ def render_model(
     """The `render(viewpoint, gaussians, pipe, bg)` analog
     (`gaussian_renderer/__init__.py:20-118`) over a GaussianModel,
     differentiable with respect to the model's parameters and
-    `mean2d_offset` on either backend.
+    `mean2d_offset` on either backend. `raster` decides the tile path's
+    backward route from the model's slot count (`raster.sort_route`).
 
     convert_shs_python / compute_cov3d_python mirror the reference's
     PipelineParams debug paths (`gaussian_renderer/__init__.py:59-96`):
@@ -91,6 +91,8 @@ def render_model(
         mean2d_offset=mean2d_offset,
         backend=backend,
         tile=raster.tile,
+        entry_budget=raster.entry_budget,
+        ptile=raster.ptile,
     )
 
 

@@ -31,6 +31,18 @@ PORT = REPO / "scgaussian_tpu_torch"
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for each port test; the other test_torch_* files
+    import this fixture. Their ops are small, and with PyTorch's default of
+    a thread per core the waiting threads spin on cores that the other test
+    workers need, which slows every worker many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def close(port, ref, **tol):
     np.testing.assert_allclose(
         port.detach().cpu().numpy(), np.asarray(ref), **(tol or TOL)

@@ -16,6 +16,7 @@ from scgaussian_tpu.model import matches as jmatches
 from scgaussian_tpu_torch import losses as tl
 from scgaussian_tpu_torch.model import matches as tmatches
 from synthetic_scene import make_synthetic  # tests/ is on sys.path under pytest
+from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def images(seed, c=3, h=24, w=32):

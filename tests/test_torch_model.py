@@ -20,6 +20,7 @@ from scgaussian_tpu_torch.model.gaussians import (
     BUFFER_NAMES, PARAM_NAMES, STAT_NAMES, model_from_numpy,
 )
 from scgaussian_tpu_torch.train.main_stage import render_model as t_render_model
+from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 W, H = 64, 48
 NUM_RAY, NUM_ALIVE, CAPACITY = 150, 40, 64

@@ -4,9 +4,9 @@ against the JAX package on the CPU.
 The JAX tile path runs its Pallas kernels in interpret mode, as
 tests/test_tile_raster.py runs them. The port's tile path on CPU tensors
 runs the CUDA kernels' plain PyTorch versions (the forward, and the
-hand-derived backward through `raster.RasterizeFn`); the kernels themselves
-are held against those plain versions on the card
-(`test_cuda_kernel_matches_plain` here, and chip_smoke.py)."""
+hand-derived backward through `raster.RasterizeFn`, by either route); the
+kernels themselves are held against those plain versions on the card (the
+`cuda`-marked tests here, and chip_smoke.py)."""
 
 import dataclasses
 import functools
@@ -21,7 +21,10 @@ from scgaussian_tpu.core.cameras import Camera as JCamera
 from scgaussian_tpu.renderer import binning as jbinning
 from scgaussian_tpu.renderer import oracle as joracle
 from scgaussian_tpu.renderer import project as jproject
+from scgaussian_tpu.config import RasterizerConfig as JRasterizerConfig
 from scgaussian_tpu.renderer import render as jrender
+from scgaussian_tpu.renderer import tile_raster as jtile_raster
+from scgaussian_tpu_torch.config import RasterizerConfig as TRasterizerConfig
 from scgaussian_tpu_torch.core.cameras import Camera as TCamera
 from scgaussian_tpu_torch.renderer import binning as tbinning
 from scgaussian_tpu_torch.renderer import oracle as toracle
@@ -29,6 +32,7 @@ from scgaussian_tpu_torch.renderer import project as tproject
 from scgaussian_tpu_torch.renderer import raster
 from scgaussian_tpu_torch.renderer import render as trender
 from test_oracle_renderer import _rotmat, make_scene  # tests/ is on sys.path under pytest
+from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 PROJ_FIELDS = ("mean2d", "depth", "conic", "color", "opacity", "radius", "valid", "ext")
 
@@ -252,6 +256,13 @@ def gradients_case():
     return jcam, tcam, scene_np(24, 9, opacity_range=(0.3, 0.8))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_oracle_grads(tile, deg):
+    """JAX oracle loss and gradients of gradients_case, computed once."""
+    jcam, _, arrays = gradients_case()
+    return _jax_grads(jcam, arrays, "oracle", tile, deg)
+
+
 def _jax_grads(jcam, arrays, backend, tile, deg):
     bg = jnp.asarray([0.3, 0.3, 0.3])
     target = jnp.ones((3, jcam.height, jcam.width)) * 0.5
@@ -288,8 +299,9 @@ def test_gradients_match_jax(port_backend, jax_backend, tile, deg):
     """Autograd through the port's oracle (smooth tile=0 variant and the
     tiled one) and through the tile path's plain version on the CPU,
     against JAX autodiff of the oracle."""
-    jcam, tcam, arrays = gradients_case()
-    l_j, g_j = _jax_grads(jcam, arrays, jax_backend, tile, deg)
+    _, tcam, arrays = gradients_case()
+    assert jax_backend == "oracle"
+    l_j, g_j = _jax_oracle_grads(tile, deg)
     l_t, g_t = _port_grads(tcam, arrays, port_backend, tile, deg)
     assert abs(l_j - l_t) < 1e-6
     for name, a, b in zip(["means", "scales", "quats", "opac", "shs"], g_j, g_t):
@@ -498,6 +510,204 @@ def test_backward_ignores_the_alpha_cap():
     assert d_opacity("oracle") == pytest.approx(clamped, rel=1e-4, abs=1e-5)
 
 
+# ---------------- segment sum and the route by sort ----------------
+
+def _segsum_reference(keys, vals, n):
+    """The JAX suite's numpy reference (tests/test_tile_raster.py:488-494):
+    per-key sums of rows, keys sorted, key n the sentinel."""
+    out = np.zeros((n, vals.shape[1]), np.float64)
+    for k, v in zip(keys, vals):
+        if k < n:
+            out[k] += v
+    return out.astype(np.float32)
+
+
+SEG_B = 1024  # the JAX kernel's block (tile_raster.SEG_B)
+SEG_N = 2200  # keys 0..2199; key 2200 is the sentinel
+
+
+def segsum_layouts():
+    """The four adversarial key layouts of
+    tests/test_tile_raster.py::test_segsum_mxu_kernel_adversarial over
+    4 * 1024 rows, rebuilt in numpy: a run over three whole blocks; dense
+    runs crossing block boundaries with a sentinel suffix; sparse keys
+    jumping close to the JAX kernel's window; one key per block. Values are
+    normal, NaN on the sentinel rows."""
+    rng = np.random.default_rng(3)
+    n, L = SEG_N, 4 * SEG_B
+    layouts = {
+        "deep_run": np.sort(np.concatenate([
+            np.full(SEG_B // 2, 7), np.full(2 * SEG_B + SEG_B // 2, 8), np.full(SEG_B, n)])),
+    }
+    k = np.sort(rng.integers(0, 900, 3 * SEG_B + 17))
+    layouts["dense_suffix"] = np.concatenate([k, np.full(L - k.size, n)])
+    base = np.sort(rng.choice(np.arange(0, SEG_B + 192 - 8, 13), 40, replace=False))
+    layouts["sparse_jumps"] = np.sort(np.concatenate([
+        rng.choice(base, 2 * SEG_B), base + 960, np.full(L - 2 * SEG_B - base.size, n)]))
+    layouts["one_key_per_block"] = np.repeat(np.asarray([3, 3, 1700, n]), SEG_B)
+    out = {}
+    for name, keys in layouts.items():
+        keys = keys.astype(np.int32)
+        assert keys.shape == (L,) and np.all(np.diff(keys) >= 0)
+        vals = rng.normal(size=(L, 10)).astype(np.float32)
+        vals[keys == n] = np.nan
+        out[name] = (keys, vals)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["deep_run", "dense_suffix", "sparse_jumps",
+                                    "one_key_per_block"])
+def test_segsum_plain_adversarial(layout):
+    """segsum (its plain version on the CPU) against the numpy reference
+    of the JAX suite: absent keys 0, NaN sentinel rows ignored. 2e-6 *
+    (max|ref| + 1): float32 sums of up to 3,072 rows in another order."""
+    keys, vals = segsum_layouts()[layout]
+    ref = _segsum_reference(keys, np.where(np.isnan(vals), 0, vals), SEG_N)
+    got = raster.segsum(torch.tensor(keys), torch.tensor(vals), SEG_N)
+    assert got.shape == (SEG_N, 10) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-6 * (np.abs(ref).max() + 1))
+    absent = np.setdiff1d(np.arange(SEG_N), keys)
+    assert float(got[torch.tensor(absent)].abs().max()) == 0.0
+
+
+def test_segsum_plain_matches_jax_kernel():
+    """segsum against the JAX kernel `_segsum_sorted_mxu` (interpret mode,
+    as test_segsum_mxu_kernel_adversarial runs it) on the dense layout, at
+    the JAX test's 2e-5 * (max + 1)."""
+    keys, vals = segsum_layouts()["dense_suffix"]
+    keys2d = keys.reshape(-1, SEG_B)
+    valsT16 = np.zeros((16, keys.size), np.float32)
+    valsT16[:10] = vals.T
+    want = np.asarray(jax.jit(jtile_raster._segsum_sorted_mxu, static_argnums=3)(
+        jnp.asarray(keys2d), jnp.asarray((keys2d[:, 0] // 8) * 8), jnp.asarray(valsT16),
+        SEG_N))[:SEG_N, :10]
+    got = raster.segsum(torch.tensor(keys), torch.tensor(vals), SEG_N).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * (np.abs(want).max() + 1))
+
+
+def test_segsum_checks_its_inputs():
+    keys, vals = torch.zeros(4, dtype=torch.int32), torch.zeros(4, 10)
+    with pytest.raises(ValueError, match="int32"):
+        raster.segsum(keys.long(), vals, 3)
+    with pytest.raises(ValueError, match="columns"):
+        raster.segsum(keys, torch.zeros(4, 17), 3)
+    with pytest.raises(ValueError, match="vals"):
+        raster.segsum(keys, torch.zeros(5, 10), 3)
+    assert raster.segsum(keys[:0], vals[:0], 3).abs().sum() == 0
+
+
+@pytest.mark.parametrize("budget", [None, 1 << 19, 1 << 20])
+@pytest.mark.parametrize("size", [(1920, 1080), (3840, 2160), (4112, 2160), (64, 48)])
+def test_sort_route_follows_the_jax_rule(size, budget):
+    """The route decision against JAX's rule: an entry budget (given, or
+    default_entry_budget(n, resolved_ptile // 16)) of at least
+    SORT_ROUTE_MIN_L. Below 4096 px the default flips above 262,144 slots."""
+    W, H = size
+    jcfg = JRasterizerConfig(entry_budget=budget)
+    tcfg = TRasterizerConfig(entry_budget=budget)
+    assert tcfg.resolved_ptile(W, H) == jcfg.resolved_ptile(W, H)
+    for n in (106_384, 262_144, 262_145, 515_536):
+        want = (budget or jbinning.default_entry_budget(
+            n, jcfg.resolved_ptile(W, H) // 16)) >= jtile_raster.SORT_ROUTE_MIN_L
+        assert raster.sort_route(n, W, H, tcfg) == want, n
+        assert tbinning.default_entry_budget(n, 2) == jbinning.default_entry_budget(n, 2)
+    if budget is None and W < 4096:
+        assert not raster.sort_route(262_144, W, H, tcfg) and raster.sort_route(262_145, W, H, tcfg)
+
+
+def test_gaussian_major_order_without_a_second_sort():
+    """The bins' Gaussian-major keys are sorted, and reordering the sorted
+    entries by `order` gives back those keys: the route needs no sort."""
+    _, t, tcam = project_both("seed2_n200")
+    bins = tbinning.bin_gaussians(t, tcam.width, tcam.height)
+    assert bool((bins.gmaj_ids[1:] >= bins.gmaj_ids[:-1]).all())
+    back = raster.gaussian_major(bins, bins.gauss_ids[:, None].float())[:, 0]
+    assert torch.equal(back.int(), bins.gmaj_ids)
+    assert torch.equal(bins.gmaj_ids[bins.order], bins.gauss_ids)
+
+
+@pytest.mark.parametrize("case", ["seed2_n200", "opaque_early_stop"])
+def test_per_entry_backward_sums_to_the_atomic_one(case):
+    """raster_bwd_entries, summed per Gaussian, is raster_bwd: 1e-6 *
+    max|g| per column group (the same terms, summed in another order)."""
+    _, t, tcam = project_both(case)
+    W, H = tcam.width, tcam.height
+    bg = torch.tensor(CASES[case]()[2], dtype=torch.float32)
+    bins = tbinning.bin_gaussians(t, W, H)
+    attrs = raster.pack_attrs(t)
+    _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
+    cots = cotangents(W, H, ("color", "depth", "alpha"), seed=2)
+    entries = raster.raster_bwd_entries(bins, attrs, bg, T, last, *cots, W, H)
+    assert entries.shape == (bins.num_entries, raster.NUM_GRADS)
+    atomic = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
+    summed = torch.zeros(attrs.shape[0], raster.ATTR_WIDTH)
+    summed[:, :10].index_add_(0, bins.gauss_ids.long(), entries)
+    assert_grad_groups(summed, atomic, 1e-6, case)
+    routed = raster.route_by_sort(bins, entries, attrs.shape[0])
+    assert_grad_groups(routed, atomic, 1e-6, case)
+    # entries past every pixel's last contributor get nothing
+    unreached = torch.ones(bins.num_entries, dtype=torch.bool)
+    starts = bins.tile_starts[:-1].long()
+    for tile in range(bins.nx * bins.ny):
+        y0, x0 = (tile // bins.nx) * 16, (tile % bins.nx) * 16
+        reach = int(last[y0:y0 + 16, x0:x0 + 16].max()) if last[y0:y0 + 16, x0:x0 + 16].numel() else 0
+        unreached[starts[tile]:starts[tile] + reach] = False
+    assert float(entries[unreached].abs().sum()) == 0.0
+
+
+ROUTE_BY_SORT = raster.route_by_sort  # the real one, for the spies below
+
+
+def test_sort_route_matches_atomic_route(monkeypatch):
+    """Through RasterizeFn on seed2_n200 with SORT_ROUTE_MIN_L at 0 (as
+    tests/test_tile_raster.py:479 forces it in JAX): the sort route's d_attrs
+    against the atomic route's within 1e-6 * max|g| per column group, and
+    the route is really taken."""
+    _, t, tcam = project_both("seed2_n200")
+    W, H = tcam.width, tcam.height
+    bins = tbinning.bin_gaussians(t, W, H)
+    attrs = raster.pack_attrs(t).detach()
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    cots = cotangents(W, H, ("color", "depth", "alpha"), seed=4)
+
+    def grads(by_sort):
+        a = attrs.clone().requires_grad_()
+        color, depth, alpha = raster.RasterizeFn.apply(a, bg, bins, W, H, by_sort)
+        loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
+        return torch.autograd.grad(loss, a)[0]
+
+    calls = []
+    monkeypatch.setattr(raster, "route_by_sort",
+                        lambda *a: calls.append(1) or ROUTE_BY_SORT(*a))
+    atomic = grads(False)
+    assert not calls
+    by_sort = grads(True)
+    assert calls
+    assert_grad_groups(by_sort, atomic, 1e-6, "sort vs atomic")
+    monkeypatch.setattr(raster, "SORT_ROUTE_MIN_L", 0)
+    assert raster.sort_route(attrs.shape[0], W, H, TRasterizerConfig())
+
+
+
+def test_sort_route_gradients_match_jax(monkeypatch):
+    """The tile path's gradients with the backward routed by sort
+    (SORT_ROUTE_MIN_L at 0) against JAX autodiff of the oracle, at the
+    5e-4 * max|g| of test_gradients_match_jax."""
+    calls = []
+    monkeypatch.setattr(raster, "SORT_ROUTE_MIN_L", 0)
+    monkeypatch.setattr(raster, "route_by_sort", lambda *a: calls.append(1) or ROUTE_BY_SORT(*a))
+    _, tcam, arrays = gradients_case()
+    l_j, g_j = _jax_oracle_grads(16, 2)
+    l_t, g_t = _port_grads(tcam, arrays, "cuda", 16, 2)
+    assert calls == [1]
+    assert abs(l_j - l_t) < 1e-6
+    for name, a, b in zip(["means", "scales", "quats", "opac", "shs"], g_j, g_t):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, atol=5e-4 * (np.abs(a).max() + 1e-8),
+                                   err_msg=name)
+
+
 # ---------------- on the card ----------------
 
 @pytest.mark.cuda
@@ -537,3 +747,60 @@ def test_cuda_kernel_matches_plain():
     # through RasterizeFn, so raster_fwd refuses one under grad mode
     with pytest.raises(ValueError, match="differentiable"):
         raster.raster_fwd(bins, attrs.clone().requires_grad_(), bg_t, cam.width, cam.height)
+
+
+@pytest.mark.cuda
+def test_cuda_segsum_matches_plain():
+    """The segment-sum kernel against segsum_plain on the adversarial
+    layouts: within 1e-5 * (max|plain| + 1) per column (index_add_ sums in
+    another order on the card), and two launches bitwise equal (no atomics,
+    a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    for name, (keys, vals) in segsum_layouts().items():
+        k = torch.tensor(keys, device="cuda")
+        v = torch.tensor(vals, device="cuda")
+        before = raster.LAUNCHES["segsum"]
+        a = raster.segsum(k, v, SEG_N)
+        b = raster.segsum(k, v, SEG_N)
+        torch.cuda.synchronize()
+        assert raster.LAUNCHES["segsum"] == before + 2
+        p = raster.segsum_plain(k, v, SEG_N)
+        assert torch.equal(a, b), name
+        tol = 1e-5 * (p.abs().amax(0) + 1)
+        assert bool(((a - p).abs() <= tol).all()), name
+
+
+@pytest.mark.cuda
+def test_cuda_sort_route_matches_atomic_route():
+    """On the card, seed2_n200: RasterizeFn's sort route (per-entry kernel,
+    reorder, segment-sum kernel) against the atomic route within 1e-5 *
+    max|g| per column group (atomics reorder the latter's sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    (_, tcam), (means, scales, quats, opac, shs), bg, _, _ = CASES["seed2_n200"]()
+    cam = tcam.to("cuda")
+    with torch.no_grad():
+        proj = tproject.project(cam, *(torch.tensor(a, device="cuda") for a in (means, opac)),
+                                scales=torch.tensor(scales, device="cuda"),
+                                rotations=torch.tensor(quats, device="cuda"),
+                                shs=torch.tensor(shs, device="cuda"), active_sh_degree=3)
+        bins = tbinning.bin_gaussians(proj, cam.width, cam.height)
+        attrs = raster.pack_attrs(proj)
+    bg_t = torch.tensor(bg, dtype=torch.float32, device="cuda")
+    cots = [c.cuda() for c in cotangents(cam.width, cam.height, ("color", "depth", "alpha"))]
+
+    def grads(by_sort):
+        a = attrs.clone().requires_grad_()
+        color, depth, alpha = raster.RasterizeFn.apply(a, bg_t, bins, cam.width, cam.height,
+                                                       by_sort)
+        loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
+        return torch.autograd.grad(loss, a)[0]
+
+    before = dict(raster.LAUNCHES)
+    atomic = grads(False)
+    by_sort = grads(True)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES["segsum"] == before["segsum"] + 1
+    assert raster.LAUNCHES["raster_bwd"] == before["raster_bwd"] + 2
+    assert_grad_groups(by_sort, atomic, 1e-5, "sort vs atomic")

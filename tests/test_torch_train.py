@@ -32,6 +32,7 @@ from scgaussian_tpu_torch.model.matches import bundle_from_numpy
 from scgaussian_tpu_torch.train import main_stage as tmain
 from scgaussian_tpu_torch.train import optim as toptim
 from synthetic_scene import make_synthetic  # tests/ is on sys.path under pytest
+from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 B1 = 0.9
 
