@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of `scgaussian_tpu_torch` from the sources in this
-checkout (one nvcc per source, started together), holds each against its
-plain PyTorch version on the card, then drives the port's three paths:
+checkout (one nvcc per source, started together) and reports each one's
+resident blocks per SM, holds each against its plain PyTorch version on the
+card (also on a scene built to press on the compositing kernels' cull),
+then drives the port's three paths:
 
 - serving: model saved to PLY -> `load_ply` -> `render_model` for 5 views
   at 1920x1080, 100k Gaussians, SH degree 3, under `torch.no_grad()`;
@@ -34,6 +36,7 @@ the script fails before printing a result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import math
 import os
@@ -64,7 +67,7 @@ from scgaussian_tpu_torch.renderer import _build, raster
 from scgaussian_tpu_torch.renderer.api import render
 from scgaussian_tpu_torch.renderer.binning import bin_gaussians
 from scgaussian_tpu_torch.renderer.oracle import composite_dense
-from scgaussian_tpu_torch.renderer.project import project
+from scgaussian_tpu_torch.renderer.project import ProjectedGaussians, project
 from scgaussian_tpu_torch.train import optim
 from scgaussian_tpu_torch.train.main_stage import (
     apply_update, make_camera_loss, render_model, train_step,
@@ -80,7 +83,9 @@ OPS_PER_PAIR = 16  # ~15 fp32 operations + 1 expf per (pixel, entry) pair evalua
 # 1 expf, 2 alpha, 1 + 1 for 1 - alpha and T, 1 w, 7 color/depth dot,
 # 3 d_alpha, 2 tail, 1 d_power, 1 d_opacity, 10 mean2d, 9 conic, 4 rgb/depth,
 # plus 10 adds to sum the terms per entry. A dead pair takes only the liveness
-# test: power (11), and where power <= 0 also expf and alpha (3 more).
+# test: power (11), and where power <= 0 also expf and alpha (3 more). Both
+# bounds keep pricing the dead pairs that the kernels' cull now skips, so
+# that times stay comparable with the first kernel designs' bounds.
 OPS_LIVE_BWD = 64
 OPS_FAINT_BWD = 14  # power <= 0, alpha < 1/255
 OPS_FAR_BWD = 11  # power > 0
@@ -90,6 +95,7 @@ ALPHA_T_MAX = 1e-5  # kernel vs plain: alpha and final T (they agree bitwise whe
 # from run to run (measured: <= 4e-7 * max|g| at 1080p).
 BWD_REL_MAX = 1e-5
 AUTOGRAD_REL_MAX = 5e-4  # plain backward vs autograd (tests/test_tile_raster.py:81-109)
+PAIR_KINDS = ("live_pairs", "faint_pairs", "far_pairs")  # the backward's pairs, by cost
 GRAD_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "opacity": (5, 6), "rgb": (6, 9),
                "depth": (9, 10)}
 
@@ -123,6 +129,13 @@ KERNELS = ("raster_fwd", "raster_bwd", "segsum")
 REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
             "raster_bwd": "scgaussian_tpu/renderer/tile_raster.py:685",
             "segsum": "scgaussian_tpu/renderer/tile_raster.py:1052"}
+# per library: (kernel, exported occupancy query, its leading arguments)
+OCCUPANCY = {"raster_fwd": [("raster_fwd", "raster_fwd_occupancy", ())],
+             "raster_bwd": [("raster_bwd", "raster_bwd_occupancy", (0,)),
+                            ("raster_bwd_entries", "raster_bwd_occupancy", (1,))],
+             "segsum": [("segsum", "segsum_occupancy", ())]}
+# the adversarial cull scene: opacities near 1/255, needle conics up to 1:1000
+CULL = (256, 160, 1500)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -214,6 +227,45 @@ def bench_scene(W: int, H: int, N: int, seed: int, log_scale: tuple):
     shs = np.zeros((N, 16, 3), np.float32)
     shs[:, 0] = rng.uniform(-1, 1, (N, 3))
     return dict(means=means, scales=scales, quats=quats, opac=opac, shs=shs)
+
+
+def cull_scene(W: int, H: int, N: int, seed: int, device) -> ProjectedGaussians:
+    """Projected splats that press on the kernels' cull: a third with
+    opacity within 1e-6 to 1e-2 above 1/255 (and some just below), the
+    rest 0.02-0.99 (a tenth at 0.99); conics with axis ratios up to 1:1000
+    at every angle (b of both signs); 2% not positive definite (det <= 0).
+    Radii reach 3.4 sigma, past the 1/255 ellipse (3.33 sigma at 0.99), and
+    the binning rect is the radius' square, so the cull, not the binning,
+    rejects the pixels beyond the ellipse."""
+    rng = np.random.default_rng(seed)
+    alpha_min = float(np.float32(1.0 / 255.0))
+    op = rng.uniform(0.02, 0.99, N)
+    edge = rng.random(N) < 1 / 3
+    op[edge] = alpha_min * (1 + 10.0 ** rng.uniform(-6, -2, edge.sum()))
+    op[rng.random(N) < 0.03] = alpha_min * (1 - 1e-6)
+    op[rng.random(N) < 0.1] = 0.99
+    s1 = np.exp(rng.uniform(0.5, 3.5, N))  # sigma along the long axis, px
+    s2 = s1 / 10.0 ** rng.uniform(0, 3, N)
+    th = rng.uniform(-math.pi, math.pi, N)
+    c, s = np.cos(th), np.sin(th)
+    i1, i2 = 1 / s1**2, 1 / s2**2
+    conic = np.stack([c * c * i1 + s * s * i2, c * s * (i1 - i2), s * s * i1 + c * c * i2], -1)
+    bad = rng.random(N) < 0.02
+    conic[bad, 1] = np.sign(conic[bad, 1] + 1e-30) * np.sqrt(conic[bad, 0] * conic[bad, 2]) * (
+        1 + rng.uniform(0, 0.5, bad.sum()))
+    radius = np.ceil(3.4 * s1) + 1
+    f32 = dict(dtype=torch.float32, device=device)
+    mean2d = np.stack([rng.uniform(-20, W + 20, N), rng.uniform(-20, H + 20, N)], -1)
+    return ProjectedGaussians(
+        mean2d=torch.tensor(mean2d, **f32),
+        depth=torch.tensor(rng.uniform(2, 10, N), **f32),
+        conic=torch.tensor(conic, **f32),
+        color=torch.tensor(rng.uniform(0, 1, (N, 3)), **f32),
+        opacity=torch.tensor(op, **f32),
+        radius=torch.tensor(radius, dtype=torch.int32, device=device),
+        valid=torch.ones(N, dtype=torch.bool, device=device),
+        ext=torch.tensor(np.stack([radius, radius], -1), dtype=torch.int32, device=device),
+    )
 
 
 def bench_camera(W, H, device):
@@ -329,8 +381,9 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
     Image and depth get the stated tolerances; alpha, final T and the last
     contributor must agree to ALPHA_T_MAX and exactly, since the kernel
     rounds the threshold-deciding arithmetic step by step as the plain
-    version does. Returns the errors, the evaluated pair count, the bound
-    inputs and the kernel's final T and last contributor."""
+    version does. Returns the errors, the evaluated pair count and the
+    plain version's other work counts, the bound inputs and the kernel's
+    final T and last contributor."""
     bins = bin_gaussians(proj, W, H)
     attrs = raster.pack_attrs(proj)
     bg = torch.tensor([0.1, 0.2, 0.3], device=attrs.device)
@@ -349,7 +402,7 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
     err["image_pixels_err_gt_1e-4"] = int(((k_out[0] - p_out[0]).abs() > 1e-4).any(0).sum())
     err["last_contributor_mismatches"] = int((k_out[4] != p_out[4]).sum())
     emit("kernel_vs_plain", scene=name, width=W, height=H, gaussians=proj.depth.shape[0],
-         entries=bins.num_entries, pairs=stats["pairs"], **err)
+         entries=bins.num_entries, **stats, **err)
     check(err["image_max_abs_err"] < img_max,
           f"{name}: image max err {err['image_max_abs_err']} >= {img_max}")
     check(err["depth_max_abs_err"] < depth_max,
@@ -362,8 +415,8 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
               f"{name}: {key} max err {err[f'{key}_max_abs_err']} >= {ALPHA_T_MAX}")
     check(err["last_contributor_mismatches"] == 0,
           f"{name}: last contributor differs at {err['last_contributor_mismatches']} pixels")
-    return dict(err=err, bins=bins, attrs=attrs, bg=bg, pairs=stats["pairs"], T=k_out[3],
-                last=k_out[4])
+    return dict(err=err, bins=bins, attrs=attrs, bg=bg, pairs=stats["pairs"], stats=stats,
+                T=k_out[3], last=k_out[4])
 
 
 def kernel_bound_ms(bins, attrs, W, H, pairs) -> tuple:
@@ -404,15 +457,18 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
     """Backward kernel vs plain version on the forward comparison's bins,
     final T and last contributor, with random cotangents: the atomic
     epilogue (`raster_bwd`), or with `per_entry` the per-entry one
-    (`raster_bwd_entries`); with `autograd`, also the plain version vs
-    autograd of raster_fwd_plain. Raises past the limits. Returns the
-    inputs, the pair counts the bound prices and the largest error."""
+    (`raster_bwd_entries`, launched twice: the two must be bitwise equal);
+    with `autograd`, also the plain version vs autograd of
+    raster_fwd_plain. Raises past the limits. Returns the inputs, the pair
+    counts the bound prices (and the warp-entry counts) and the largest
+    error."""
     bins, attrs, bg, T, last = cmp["bins"], cmp["attrs"], cmp["bg"], cmp["T"], cmp["last"]
     before = dict(raster.LAUNCHES)
     cots = random_cotangents(W, H, 1, attrs.device)
     kernel, plain = ((raster.raster_bwd_entries, raster.raster_bwd_entries_plain) if per_entry
                      else (raster.raster_bwd, raster.raster_bwd_plain))
     k = kernel(bins, attrs, bg, T, last, *cots, W, H)
+    again = kernel(bins, attrs, bg, T, last, *cots, W, H) if per_entry else k
     counts = {}
     p = plain(bins, attrs, bg, T, last, *cots, W, H, stats=counts)
     torch.cuda.synchronize()
@@ -428,9 +484,11 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
             loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
             (want,) = torch.autograd.grad(loss, a)
         out["plain_vs_autograd"] = group_errors(p, want)
-    check(sum(counts.values()) == int(last.sum()), f"{name}: pair counts {counts}")
+    check(sum(counts[k] for k in PAIR_KINDS) == int(last.sum()), f"{name}: pair counts {counts}")
     emit("backward_vs_plain", scene=name, width=W, height=H, entries=bins.num_entries,
-         epilogue="per_entry" if per_entry else "atomic", **counts, **out)
+         epilogue="per_entry" if per_entry else "atomic", bitwise_repeat=bool(torch.equal(k, again)),
+         **counts, **out)
+    check(torch.equal(k, again), f"{name}: two per-entry launches differ")
     check_groups(f"{name} kernel vs plain", errs, BWD_REL_MAX)
     if autograd:
         check_groups(f"{name} plain vs autograd", out["plain_vs_autograd"], AUTOGRAD_REL_MAX)
@@ -593,15 +651,26 @@ def match_bundle_for(gt_model, cams, seed: int, matches: int):
 # ---------------- phases ----------------
 
 def build_kernels(root: str) -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; then each kernel's
+    resident blocks per SM, from the occupancy query its source exports."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     seconds = time.perf_counter() - t0
     for name, lib_path in libs.items():
         ptxas = lib_path.with_suffix(".log").read_text().strip().splitlines()
+        blocks = {}
+        for entry, query, args in OCCUPANCY[name]:
+            fn = getattr(_build.load(name), query)
+            fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            n = ctypes.c_int(0)
+            err = fn(*args, ctypes.byref(n))
+            check(err == 0, f"{query}{args}: CUDA error {err}")
+            blocks[entry] = n.value
         emit("build", kernel=name, seconds=seconds, library=os.path.relpath(lib_path, root),
-             ptxas=[ln for ln in ptxas if "registers" in ln or "spill" in ln])
+             ptxas=[ln for ln in ptxas if "registers" in ln or "spill" in ln or "smem" in ln],
+             resident_blocks_per_sm=blocks)
 
 
 def serving_phases(dev, root) -> dict:
@@ -613,6 +682,11 @@ def serving_phases(dev, root) -> dict:
     proj_p = project_scene(cam_p, parity, dev)
     parity_cmp = compare_kernel("parity", proj_p, W, H, img_max=1e-3, depth_max=1e-2)
     compare_backward("parity", parity_cmp, W, H, autograd=True)
+    Wc, Hc, Nc = CULL
+    cull_cmp = compare_kernel("cull_adversarial", cull_scene(Wc, Hc, Nc, 5, dev), Wc, Hc,
+                              img_max=1e-3, depth_max=1e-2)
+    for per_entry in (False, True):
+        compare_backward("cull_adversarial", cull_cmp, Wc, Hc, per_entry=per_entry)
     bg0 = torch.zeros(3, device=dev)
     t = {k: torch.tensor(v, device=dev) for k, v in parity.items()}
     tile_out = render(cam_p, t["means"], t["opac"], bg0, scales=t["scales"],
@@ -688,10 +762,10 @@ def serving_phases(dev, root) -> dict:
     bench_bound, bench_bound_by = kernel_bound_ms(bbins, battrs, W1, H1, bench_cmp["pairs"])
     emit("kernel_time", kernel="raster_fwd", scene="main_path_view0", kernel_ms=kernel_t,
          plain=plain_t, bound_ms=bound, bound_by=bound_by, entries=bins.num_entries,
-         pairs=main_cmp["pairs"])
+         **main_cmp["stats"])
     emit("kernel_time", kernel="raster_fwd", scene="bench_full", kernel_ms=bench_kernel_t,
          plain=bench_plain_t, bound_ms=bench_bound, bound_by=bench_bound_by,
-         entries=bbins.num_entries, pairs=bench_cmp["pairs"])
+         entries=bbins.num_entries, **bench_cmp["stats"])
 
     # backward kernel timing on the same bins with the comparison's cotangents
     T, last, cots = main_bwd["T"], main_bwd["last"], main_bwd["cots"]
@@ -1023,11 +1097,13 @@ def pipeline_phase(dev) -> dict:
     }
     times = {"raster_fwd": t_fwd, "raster_bwd_entries": t_entries, "raster_bwd": t_atomic,
              "segsum": t_seg}
+    work = {"raster_fwd": cmp4["stats"], "raster_bwd_entries": bwd4["counts"],
+            "raster_bwd": bwd4["counts"], "segsum": dict(plain=t_seg_plain,
+                                                         library_index_add=t_seg_lib)}
     for kernel, t in times.items():
-        extra = dict(plain=t_seg_plain, library_index_add=t_seg_lib) if kernel == "segsum" else {}
         emit("kernel_time", kernel=kernel, scene="pipeline_4k_view0", kernel_ms=t,
              bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], entries=bins.num_entries,
-             gaussians=n, **extra, **(bwd4["counts"] if kernel.startswith("raster_bwd") else {}))
+             gaussians=n, **work[kernel])
     raster.LAUNCHES.update(before)  # comparison and timing launches do not count
     train_breakdown("pipeline_4k", model, state.opt_state, bundle, cam, gts[0], bg, cfg, extras,
                     {"backward_kernel_per_entry": t_entries, "reorder": t_reorder,

@@ -1,4 +1,4 @@
-// Forward tile compositing of depth-sorted Gaussians, one thread per pixel.
+// Forward tile compositing of depth-sorted Gaussians.
 //
 // Replaces the TPU kernel `_stream_fwd_kernel` / `_stream_fwd_block`
 // (scgaussian_tpu/renderer/tile_raster.py:578-683, launched by
@@ -8,50 +8,57 @@
 // triangular-matmul prefix sums, bf16 splits and chunking there were TPU
 // workarounds.
 //
-// Design: a grid of ceil(W/16) x ceil(H/16) blocks of 256 threads; block =
-// 16x16 tile, thread = pixel (pixel centre = integer (x, y)). The block walks
-// its tile's [start, end) entry range in batches of 256: each thread gathers
-// one entry's packed attributes (3 float4 = mean xy, conic abc, opacity, rgb,
-// depth, 2 pad) into shared memory, then every thread composites the batch
-// front to back. The block leaves once __syncthreads_count(done) == 256.
+// What bounds it on an H100. Bytes are small (entry ids, 48-B attribute rows
+// mostly from L2, 28 B written per pixel); the work is the (pixel, entry)
+// pairs, ~15 fp32 operations and one expf each, ~81 pairs a pixel at the
+// 1080p main view because the 1e-4 stop rarely fires there. Most pairs are
+// faint (alpha < 1/255). The first design (one thread per pixel,
+// 256-entry batches loaded between two barriers, every pixel computing power,
+// expf and alpha for every entry) took 0.32-0.38 ms at 1080p and 0.66 ms at
+// 4K against bounds of 0.040 and 0.087 ms. Replacing its expf by __expf
+// changed its time by < 10% (PERF.md): the instruction slots went to every pair's
+// whole test and its branches, not to expf alone.
 //
-// Bound on an H100: bytes are the entry ids (4 B each), the attribute rows
-// the entries gather (48 B per Gaussian, re-read per covered tile, mostly
-// from L2) and 28 B written per pixel (rgb, depth, alpha, T, last
-// contributor); arithmetic is ~15 fp32 operations and one expf per evaluated
-// pixel-entry pair. At 1080p with ~1e5 Gaussians the arithmetic bound is the
-// larger one, a few hundredths of a millisecond (PERF.md has the measured
-// time beside it). The design keeps both low: each entry's attributes are
-// read from device memory once per tile and then broadcast to all 256 threads
-// from shared memory (no bank conflicts), the per-pixel state stays in
-// registers, and a block stops walking its range as soon as every pixel in the
-// tile is saturated, so the pairs after the 1e-4 stop are never evaluated.
+// Design (csrc/raster_common.cuh):
+//  - a 128-thread block per 16x16 tile, two pixels of one column per thread,
+//    so a pixel pair shares dx and ca*dx*dx (same _rn operations, same bits);
+//  - per entry, a cull computed once by the thread that staged it: a warp
+//    skips an entry whose 1/255 ellipse cannot reach its 8x8 pixels (40% of
+//    the warp-entries at 1080p, 58% at 4K), and a pixel goes on to expf only
+//    above the power where it is certainly faint; a skipped entry still
+//    advances the contributor index (it is the entry's position), so `last`
+//    is unchanged;
+//  - a thread's two pixels go through alpha, T and the blend without
+//    branches (selects), so the two updates interleave;
+//  - the rows of the next batch are gathered with cp.async while this batch
+//    composites (double-buffered shared memory, ids read a batch ahead);
+//  - the block leaves once __syncthreads_count says every pixel is saturated.
+// Shared memory 12 KB a block; 8 blocks fit on an SM (chip_smoke.py's build
+// phase prints the registers and resident blocks). The times are in PERF.md.
 //
 // Numerics: fp32 throughout, built without --use_fast_math so expf is the
 // accurate expf and not __expf. The threshold-deciding arithmetic (power,
 // 1 - alpha, T * (1 - alpha)) is written with the _rn intrinsics, which the
 // compiler may not contract into FMAs, so it rounds step by step exactly as
 // the plain PyTorch version does: a flip at the 1/255 or 1e-4 threshold would
-// change the image.
+// change the image. The cull only skips pairs that arithmetic finds dead.
 //
 // The power test follows the oracle (power > 0 skips), not the TPU kernel's
 // power <= 1e-4 (tile_raster.py:296, 573).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
+using namespace raster;
+
 constexpr float kTEps = 1e-4f;
+constexpr int kBatch = kThreads;  // entries staged per batch, one per thread
 
 // attrs row g = float4 x 3:
 //   a = (mean x, mean y, conic a, conic b)
 //   b = (conic c, opacity, r, g)
-//   c = (b, depth, 0, 0)
+//   c = (b, depth, 0, 0); in shared memory c.z, c.w hold the cull data
 __global__ void __launch_bounds__(kThreads)
 raster_fwd_kernel(const int32_t* __restrict__ tile_starts,
                   const int32_t* __restrict__ gauss_ids,
@@ -64,85 +71,133 @@ raster_fwd_kernel(const int32_t* __restrict__ tile_starts,
                   float* __restrict__ out_T,       // [H, W]
                   int32_t* __restrict__ out_last)  // [H, W]
 {
-  __shared__ float4 s_a[kThreads];
-  __shared__ float4 s_b[kThreads];
-  __shared__ float4 s_c[kThreads];
+  __shared__ float4 s_a[2][kBatch];
+  __shared__ float4 s_b[2][kBatch];
+  __shared__ float4 s_c[2][kBatch];
 
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int px = blockIdx.x * kTile + (threadIdx.x % kTile);
-  const int py = blockIdx.y * kTile + (threadIdx.x / kTile);
-  const bool inside = px < width && py < height;
+  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  const int px = x0 + local_x(t);
+  const int py0 = y0 + local_y0(t);
   const float fx = static_cast<float>(px);
-  const float fy = static_cast<float>(py);
 
   const int start = tile_starts[tile];
-  const int end = tile_starts[tile + 1];
+  const int count = tile_starts[tile + 1] - start;
+  const int batches = (count + kBatch - 1) / kBatch;
 
-  bool done = !inside;
-  float T = 1.0f;
-  float C0 = 0.0f, C1 = 0.0f, C2 = 0.0f, D = 0.0f;
-  int contributor = 0;
-  int last = 0;
-
-  for (int base = start; base < end; base += kThreads) {
-    // the barrier also guards the shared batch the previous pass read
-    if (__syncthreads_count(done) == kThreads) break;
-    const int e = base + threadIdx.x;
-    if (e < end) {
-      const int g = gauss_ids[e];
-      s_a[threadIdx.x] = attrs[3 * g + 0];
-      s_b[threadIdx.x] = attrs[3 * g + 1];
-      s_c[threadIdx.x] = attrs[3 * g + 2];
-    }
-    __syncthreads();
-    const int n = min(kThreads, end - base);
-    for (int j = 0; !done && j < n; ++j) {
-      ++contributor;
-      const float4 a = s_a[j];
-      const float4 b = s_b[j];
-      const float dx = __fsub_rn(a.x, fx);
-      const float dy = __fsub_rn(a.y, fy);
-      // power = -0.5 * (ca*dx*dx + cc*dy*dy) - cb*dx*dy, rounded per step
-      const float qa = __fmul_rn(__fmul_rn(a.z, dx), dx);
-      const float qc = __fmul_rn(__fmul_rn(b.x, dy), dy);
-      const float qb = __fmul_rn(__fmul_rn(a.w, dx), dy);
-      const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
-      if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaMax, __fmul_rn(b.y, expf(power)));
-      if (alpha < kAlphaMin) continue;
-      const float T_new = __fmul_rn(T, __fsub_rn(1.0f, alpha));
-      if (T_new < kTEps) {
-        done = true;
-        continue;
-      }
-      const float w = __fmul_rn(alpha, T);
-      const float4 c = s_c[j];
-      C0 += w * b.z;
-      C1 += w * b.w;
-      C2 += w * c.x;
-      D += w * c.y;
-      T = T_new;
-      last = contributor;
-    }
+  float T[kP], C0[kP], C1[kP], C2[kP], D[kP];
+  int last[kP];
+  bool done[kP];
+  bool all_done = true;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) {
+    T[k] = 1.0f;
+    C0[k] = C1[k] = C2[k] = D[k] = 0.0f;
+    last[k] = 0;
+    done[k] = !(px < width && py0 + k < height);
+    all_done = all_done && done[k];
   }
 
-  if (inside) {
-    const int hw = width * height;
-    const int p = py * width + px;
-    out_color[p] = C0 + T * bg[0];
-    out_color[hw + p] = C1 + T * bg[1];
-    out_color[2 * hw + p] = C2 + T * bg[2];
-    out_depth[p] = D;
-    out_alpha[p] = 1.0f - T;
-    out_T[p] = T;
-    out_last[p] = last;
+  // batch 0 in flight; the ids of batch 1 in a register
+  if (t < count) {
+    stage_row(&s_a[0][t], &s_b[0][t], &s_c[0][t], attrs, gauss_ids[start + t]);
+  }
+  __pipeline_commit();
+  int id_next = kBatch + t < count ? gauss_ids[start + kBatch + t] : 0;
+
+  for (int b = 0; b < batches; ++b) {
+    // also the barrier after which the other buffer may be overwritten
+    if (__syncthreads_count(all_done) == kThreads) break;
+    const int buf = b & 1;
+    const int base = b * kBatch;
+    const int n = min(kBatch, count - base);
+    int id_after = 0;
+    if (base + kBatch + t < count) {
+      stage_row(&s_a[buf ^ 1][t], &s_b[buf ^ 1][t], &s_c[buf ^ 1][t], attrs, id_next);
+      if (base + 2 * kBatch + t < count) id_after = gauss_ids[start + base + 2 * kBatch + t];
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this thread's rows of batch b have landed
+    if (t < n) {
+      uint32_t mask;
+      const float thr = cull_entry(s_a[buf][t], s_b[buf][t], x0, y0, &mask);
+      s_c[buf][t].z = thr;
+      s_c[buf][t].w = __uint_as_float(mask);
+    }
+    __syncthreads();
+
+    for (int j = 0; j < n && !all_done; ++j) {
+      const float4 c = s_c[buf][j];
+      if (!((__float_as_uint(c.w) >> warp) & 1u)) continue;  // culled for this warp
+      const float4 a = s_a[buf][j];
+      const float4 bb = s_b[buf][j];
+      const float dx = __fsub_rn(a.x, fx);
+      const float qa = __fmul_rn(__fmul_rn(a.z, dx), dx);
+      float power[kP];
+      bool maybe[kP];
+      bool any_maybe = false;
+#pragma unroll
+      for (int k = 0; k < kP; ++k) {
+        const float dy = __fsub_rn(a.y, static_cast<float>(py0 + k));
+        // power = -0.5 * (ca*dx*dx + cc*dy*dy) - cb*dx*dy, rounded per step
+        const float qc = __fmul_rn(__fmul_rn(bb.x, dy), dy);
+        const float qb = __fmul_rn(__fmul_rn(a.w, dx), dy);
+        power[k] = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
+        // c.z: certainly faint below
+        maybe[k] = !done[k] && !(power[k] > 0.0f) && !(power[k] < c.z);
+        any_maybe = any_maybe || maybe[k];
+      }
+      if (!any_maybe) continue;
+      // both pixels without branches, so the two updates interleave
+#pragma unroll
+      for (int k = 0; k < kP; ++k) {
+        const float alpha = fminf(kAlphaMax, __fmul_rn(bb.y, expf(power[k])));
+        const bool live = maybe[k] && alpha >= kAlphaMin;
+        const float T_new = __fmul_rn(T[k], __fsub_rn(1.0f, alpha));
+        const bool stop = live && T_new < kTEps;
+        const bool blend = live && !stop;
+        const float w = __fmul_rn(alpha, T[k]);
+        done[k] = done[k] || stop;
+        C0[k] = blend ? C0[k] + w * bb.z : C0[k];
+        C1[k] = blend ? C1[k] + w * bb.w : C1[k];
+        C2[k] = blend ? C2[k] + w * c.x : C2[k];
+        D[k] = blend ? D[k] + w * c.y : D[k];
+        T[k] = blend ? T_new : T[k];
+        last[k] = blend ? base + j + 1 : last[k];
+      }
+      all_done = true;
+#pragma unroll
+      for (int k = 0; k < kP; ++k) all_done = all_done && done[k];
+    }
+    id_next = id_after;
+  }
+  __pipeline_wait_prior(0);  // no copy may land after the block has left
+
+  const int hw = width * height;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) {
+    const int py = py0 + k;
+    if (px < width && py < height) {
+      const int p = py * width + px;
+      out_color[p] = C0[k] + T[k] * bg[0];
+      out_color[hw + p] = C1[k] + T[k] * bg[1];
+      out_color[2 * hw + p] = C2[k] + T[k] * bg[2];
+      out_depth[p] = D[k];
+      out_alpha[p] = 1.0f - T[k];
+      out_T[p] = T[k];
+      out_last[p] = last[k];
+    }
   }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream`, never
-// synchronises, and returns cudaGetLastError() (0 on success).
+// Plain C entry points (loaded with ctypes). `raster_fwd` launches on
+// `stream`, never synchronises, and returns cudaGetLastError() (0 on
+// success). `raster_fwd_occupancy` stores the kernel's resident blocks per
+// SM in `blocks` and returns the CUDA error code.
 extern "C" int raster_fwd(const void* tile_starts, const void* gauss_ids,
                           const void* attrs, const void* bg,
                           int width, int height,
@@ -157,4 +212,9 @@ extern "C" int raster_fwd(const void* tile_starts, const void* gauss_ids,
       static_cast<float*>(out_depth), static_cast<float*>(out_alpha),
       static_cast<float*>(out_T), static_cast<int32_t*>(out_last));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int raster_fwd_occupancy(int* blocks) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, raster_fwd_kernel, kThreads, 0));
 }

@@ -142,3 +142,10 @@ extern "C" int segsum(const void* keys, const void* vals, int e, int n, int c,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident blocks per SM of the kernel, stored in `blocks`; returns the CUDA
+// error code.
+extern "C" int segsum_occupancy(int* blocks) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, segsum_kernel, kThreads, 0));
+}

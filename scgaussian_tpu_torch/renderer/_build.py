@@ -2,8 +2,9 @@
 
 Each source is compiled on first use into `build/kernels/` at the root of
 the checkout, as a shared library with a plain C interface, named by a hash
-of its source and flags, so an edited source rebuilds and an unchanged one
-loads from the previous build. Nothing here runs at import time.
+of its source, the headers under `csrc/` and the flags, so an edited source
+or header rebuilds and an unchanged one loads from the previous build.
+Nothing here runs at import time.
 
 The compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
 kept beside the library as `<name>-<hash>.log`.
@@ -43,7 +44,8 @@ def nvcc_path() -> str:
 def build(name: str) -> Path:
     """Compile `csrc/<name>.cu` unless its build is current; returns the
     library's path. Raises with the compiler's output when nvcc fails."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, every header beside it (a source may include them) and the flags
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -43,6 +44,17 @@ ATTR_WIDTH = 12  # packed attribute row, 3 float4 (see csrc/raster_fwd.cu)
 NUM_GRADS = 10  # gradient columns: mean x/y, conic a/b/c, opacity, rgb, depth
 # entry budget from which the backward routes by sort (tile_raster.py:1033)
 SORT_ROUTE_MIN_L = 1 << 20
+# the kernels' warp footprint (csrc/raster_common.cuh): a thread owns two
+# pixels of one column, a warp 8 x 8 pixels, four warps a tile
+WARP_FOOT = (8, 8)  # (x, y) pixels
+# the cull's margins (csrc/raster_common.cuh, `cull_entry`)
+CULL_EXP_SLACK = 1e-6
+CULL_FAINT_MARGIN = 1e-5
+CULL_KAPPA = 3e-7
+CULL_PIX_SLACK = 1e-3
+# the pair and warp-entry counts of the plain versions' `stats`, by key
+WARP_STATS = ("warp_entries", "live_warp_entries", "culled_warp_entries",
+              "live_warp_pairs", "dead_warp_pairs", "culled_pairs")
 
 # Kernel launches since import, by kernel. Only the wrappers add to it.
 LAUNCHES = {"raster_fwd": 0, "raster_bwd": 0, "segsum": 0}
@@ -159,6 +171,81 @@ def _tile_pixels(nx: int, ny: int, dev: torch.device):
     return px, py
 
 
+def entry_cull_rect(attrs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' cull (`cull_entry` in csrc/raster_common.cuh) per packed
+    row, in float64 as the kernels compute it.
+
+    Returns (rect [N, 4] float64, thr [N] float32). `rect` holds x_lo, x_hi,
+    y_lo, y_hi, the bounds (inclusive) of the pixel centres where the row
+    can give alpha >= 1/255 by the kernels' rounded arithmetic: +-inf
+    bounds where nothing is culled (a conic that is not positive definite
+    with the margin, a needle too thin for fp32, NaN), an empty rect where
+    opacity < 1/255. `thr`: below this power a pair is certainly faint, so
+    expf is skipped (NaN for a NaN opacity: nothing skipped)."""
+    a = attrs.detach().to(torch.float64)
+    mx, my, ca, cb, cc = (a[:, i] for i in range(5))
+    alpha_min = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+    dead = attrs[:, 5].detach() < ALPHA_MIN  # compared in float32, as the kernels do
+    lnr = torch.log(a[:, 5] / alpha_min)
+    t64 = -lnr - CULL_FAINT_MARGIN
+    thr = t64.to(torch.float32)
+    thr = torch.where(thr.to(torch.float64) > t64, torch.nextafter(thr, torch.full_like(thr, -math.inf)),
+                      thr)  # rounded down
+    thr = torch.where(dead, math.inf, thr)
+    s = 2.0 * CULL_KAPPA
+    axx = ca - s * (ca + cb.abs())
+    ayy = cc - s * (cc + cb.abs())
+    det = axx * ayy - cb * cb
+    r2 = 2.0 * (lnr + CULL_EXP_SLACK)
+    hx = torch.sqrt(r2 * ayy / det) + CULL_PIX_SLACK
+    hy = torch.sqrt(r2 * axx / det) + CULL_PIX_SLACK
+    ok = ((axx > 0) & (det > 0) & (r2 < 1e30) & (attrs[:, 0].abs() < 1e30)
+          & (attrs[:, 1].abs() < 1e30) & (hx < 1e7) & (hy < 1e7))
+    rect = torch.stack([torch.ceil(mx - hx), torch.floor(mx + hx),
+                        torch.ceil(my - hy), torch.floor(my + hy)], dim=1)
+    inf = math.inf
+    rect = torch.where(ok[:, None], rect, rect.new_tensor([-inf, inf, -inf, inf]))
+    rect = torch.where(dead[:, None], rect.new_tensor([inf, -inf, inf, -inf]), rect)
+    return rect, thr
+
+
+def _warps(x: torch.Tensor) -> torch.Tensor:
+    """[T, 256] per-pixel values of a tile -> [T, 4, 64], by the kernels'
+    warp footprints (warp w = wy * 2 + wx)."""
+    fx, fy = WARP_FOOT
+    t = x.shape[0]
+    x = x.reshape(t, TILE // fy, fy, TILE // fx, fx).movedim(3, 2)
+    return x.reshape(t, (TILE // fy) * (TILE // fx), fx * fy)
+
+
+def _warp_reach(rect: torch.Tensor, nx: int) -> torch.Tensor:
+    """[T, 4] rects (`entry_cull_rect`) of each tile's current entry ->
+    [T, 4] bool: the warps whose footprint the cull lets the entry reach."""
+    fx, fy = WARP_FOOT
+    tid = torch.arange(rect.shape[0], device=rect.device)
+    x0 = ((tid % nx) * TILE).to(torch.float64)
+    y0 = ((tid // nx) * TILE).to(torch.float64)
+    wid = torch.arange((TILE // fx) * (TILE // fy), device=rect.device)
+    wx0 = ((wid % (TILE // fx)) * fx).to(torch.float64)
+    wy0 = ((wid // (TILE // fx)) * fy).to(torch.float64)
+    xl, xh = rect[:, 0:1] - x0[:, None], rect[:, 1:2] - x0[:, None]
+    yl, yh = rect[:, 2:3] - y0[:, None], rect[:, 3:4] - y0[:, None]
+    return (xl <= wx0 + fx - 1) & (xh >= wx0) & (yl <= wy0 + fy - 1) & (yh >= wy0)
+
+
+def _warp_counts(needs: torch.Tensor, live: torch.Tensor, reach: torch.Tensor) -> torch.Tensor:
+    """One step's `WARP_STATS` counts: `needs` [T, 256] the pairs the kernel
+    must decide (a warp visits the entry if any lane has one), `live` [T,
+    256] the live ones, `reach` [T, 4] the warps the cull lets through."""
+    pairs = _warps(needs).sum(-1)  # [T, 4]
+    visit = pairs > 0
+    culled = visit & ~reach
+    with_live = visit & reach & _warps(live).any(-1)
+    dead = visit & reach & ~with_live
+    return torch.stack([visit.sum(), with_live.sum(), culled.sum(), (pairs * with_live).sum(),
+                        (pairs * dead).sum(), (pairs * culled).sum()])
+
+
 def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                      width: int, height: int, stats: dict | None = None) -> RasterOut:
     """The kernel's arithmetic in PyTorch ops, differentiable by autograd.
@@ -167,8 +254,11 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     over a [tiles, 256] pixel state; a tile whose range is exhausted sits
     still. Same operation order as the kernel, so the threshold tests round
     alike. With `stats`, stores under "pairs" the number of (pixel, entry)
-    pairs evaluated: the kernel evaluates the same ones, which is the work
-    its bound counts."""
+    pairs to evaluate, which is the work the kernel's bound counts, and
+    under `WARP_STATS` how the kernel's warps meet them: the warp-entries it
+    visits (a lane has a pixel not yet saturated), those with a live pair,
+    those the cull rejects, and the pairs in each kind of warp-entry (they
+    add up to "pairs")."""
     dev = attrs.device
     nx, ny = bins.nx, bins.ny
     num_tiles = nx * ny
@@ -185,13 +275,13 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     last = torch.zeros(num_tiles, TILE * TILE, dtype=torch.int32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    warp_counts = torch.zeros(len(WARP_STATS), dtype=torch.int64, device=dev)
+    rect = entry_cull_rect(attrs)[0] if stats is not None else None
 
     n_entries = bins.num_entries
     steps = int(counts.max()) if num_tiles and n_entries else 0
     for k in range(steps):
         active = (k < counts)[:, None]  # [T, 1]
-        if stats is not None:
-            pairs += (active & ~done).sum()
         g = bins.gauss_ids[torch.clamp(starts + k, max=n_entries - 1)].long()
         a = attrs[g]  # [T, 12]
         dx = a[:, 0:1] - px
@@ -199,6 +289,10 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
         alpha = torch.clamp(a[:, 5:6] * torch.exp(power), max=ALPHA_MAX)
         live = active & ~done & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        if stats is not None:
+            needs = active & ~done
+            pairs += needs.sum()
+            warp_counts += _warp_counts(needs, live, _warp_reach(rect[g], nx))
         T_new = T * (1.0 - alpha)
         ok = live & (T_new >= T_EPS)
         done = done | (live & (T_new < T_EPS))
@@ -217,6 +311,7 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
 
     if stats is not None:
         stats["pairs"] = int(pairs)
+        stats.update(zip(WARP_STATS, warp_counts.tolist()))
     color = image(C + T[None] * bg[:, None, None])
     return color, image(D), image(1.0 - T), image(T), image(last)
 
@@ -417,7 +512,11 @@ def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     contributor by how far the kernel must take them, which is the work its
     bound counts: "live_pairs" (the whole gradient chain), "faint_pairs"
     (power <= 0 but alpha < 1/255: power, exp and alpha only) and
-    "far_pairs" (power > 0: power only)."""
+    "far_pairs" (power > 0: power only); and under `WARP_STATS` how the
+    kernel's warps meet those pairs: the warp-entries it visits (before the
+    warp's largest last contributor), those with a live pair (which reduce),
+    those the cull rejects, and the pairs in each kind (they add up to the
+    three pair counts)."""
     d = _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
                    width, height, False, stats)
     return torch.cat([d, torch.zeros_like(d[:, :2])], dim=1)
@@ -460,6 +559,8 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
     d = torch.zeros(rows, NUM_GRADS, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)  # live, faint, far
+    warp_counts = torch.zeros(len(WARP_STATS), dtype=torch.int64, device=dev)
+    rect = entry_cull_rect(attrs)[0] if stats is not None else None
 
     n_entries = bins.num_entries
     steps = int(last_t.max()) if last_t.numel() else 0
@@ -478,6 +579,7 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
         if stats is not None:
             near = active & (power <= 0.0)
             counts += torch.stack([live.sum(), (near & ~live).sum(), (active & ~near).sum()])
+            warp_counts += _warp_counts(active, live, _warp_reach(rect[g], nx))
         one_m = 1.0 - alpha
         T_before = torch.where(live, T / one_m, T)
         w = torch.where(live, alpha * T_before, zero)
@@ -508,6 +610,7 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
             d.index_add_(0, g, sums)
     if stats is not None:
         stats.update(zip(("live_pairs", "faint_pairs", "far_pairs"), counts.tolist()))
+        stats.update(zip(WARP_STATS, warp_counts.tolist()))
     return d
 
 
