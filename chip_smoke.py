@@ -133,7 +133,8 @@ REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
 OCCUPANCY = {"raster_fwd": [("raster_fwd", "raster_fwd_occupancy", ())],
              "raster_bwd": [("raster_bwd", "raster_bwd_occupancy", (0,)),
                             ("raster_bwd_entries", "raster_bwd_occupancy", (1,))],
-             "segsum": [("segsum", "segsum_occupancy", ())]}
+             "segsum": [("segsum@c=10", "segsum_occupancy", (10,)),
+                        ("segsum@c=other", "segsum_occupancy", (0,))]}
 # the adversarial cull scene: opacities near 1/255, needle conics up to 1:1000
 CULL = (256, 160, 1500)
 
@@ -189,10 +190,11 @@ def host_times(fn, reps: int = REPS) -> dict:
             "reps": reps}
 
 
-def device_busy(fn, reps: int = REPS) -> dict:
+def device_busy(fn, reps: int = REPS, require: bool = True) -> dict:
     """Device busy time and kernel count per call of `fn()`, from
     torch.profiler's kernel events over `reps` calls after one warm-up
-    (one stream, so the kernels' times add up to the busy time)."""
+    (one stream, so the kernels' times add up to the busy time). Raises if
+    the profiler saw no device time, unless `require` is off."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -201,7 +203,7 @@ def device_busy(fn, reps: int = REPS) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels) / reps
-    check(busy_us > 0, "the profiler saw no device time")
+    check(busy_us > 0 or not require, "the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return {
         "busy_ms": busy_us / 1e3,
@@ -209,6 +211,17 @@ def device_busy(fn, reps: int = REPS) -> dict:
         "top": [{"kernel": e.key[:80], "ms_per_call": e.self_device_time_total / reps / 1e3,
                  "launches_per_call": e.count / reps} for e in top],
     }
+
+
+def kernel_device_ms(fn, reps: int = REPS):
+    """Device time per call of `fn()` (`device_busy`), or None when the
+    profiler saw none in three sessions: it has dropped a whole session's
+    events after many sessions in one process."""
+    for _ in range(3):
+        busy = device_busy(fn, reps, require=False)["busy_ms"]
+        if busy > 0:
+            return busy
+    return None
 
 
 # ---------------- scenes ----------------
@@ -457,7 +470,8 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
     """Backward kernel vs plain version on the forward comparison's bins,
     final T and last contributor, with random cotangents: the atomic
     epilogue (`raster_bwd`), or with `per_entry` the per-entry one
-    (`raster_bwd_entries`, launched twice: the two must be bitwise equal);
+    (`raster_bwd_entries`, rows in Gaussian-major order, launched twice: the
+    two must be bitwise equal);
     with `autograd`, also the plain version vs autograd of
     raster_fwd_plain. Raises past the limits. Returns the inputs, the pair
     counts the bound prices (and the warp-entry counts) and the largest
@@ -518,12 +532,12 @@ def kernel_bound_ms_bwd(bins, attrs, W, H, counts, per_entry: bool = False) -> t
 
 # ---------------- segment sum and the route by sort ----------------
 
-def segsum_layouts(seed: int = 3) -> dict:
+def segsum_layouts(seed: int = 3, cols: int = 10) -> dict:
     """The four adversarial key layouts of tests/test_tile_raster.py:497-552
     over 4 x 1,024 rows, keys below 2,200 and the sentinel 2,200: a run over
     three whole blocks; dense runs crossing blocks with a sentinel suffix;
     sparse keys with jumps; one key per block. Values are normal, NaN on the
-    sentinel rows. Returns name -> (keys int32 [E], vals float32 [E, 10], n)."""
+    sentinel rows. Returns name -> (keys int32 [E], vals float32 [E, cols], n)."""
     rng = np.random.default_rng(seed)
     n, B = 2200, 1024
     L = 4 * B
@@ -539,16 +553,17 @@ def segsum_layouts(seed: int = 3) -> dict:
     }
     out = {}
     for name, keys in layouts.items():
-        vals = rng.normal(size=(L, 10)).astype(np.float32)
+        vals = rng.normal(size=(L, cols)).astype(np.float32)
         vals[keys == n] = np.nan
         out[name] = (keys.astype(np.int32), vals, n)
     return out
 
 
 def compare_segsum(name: str, keys: torch.Tensor, vals: torch.Tensor, n: int) -> dict:
-    """segsum kernel vs segsum_plain on the same input: per column, max abs
-    error <= SEGSUM_REL_MAX * (max |plain| + 1); two launches bitwise equal.
-    Raises otherwise. Comparison launches do not count."""
+    """segsum kernel's keys form vs segsum_plain on the same input: per
+    column, max abs error <= SEGSUM_REL_MAX * (max |plain| + 1); two
+    launches bitwise equal. Raises otherwise. Comparison launches do not
+    count."""
     before = dict(raster.LAUNCHES)
     a = raster.segsum(keys, vals, n)
     b = raster.segsum(keys, vals, n)
@@ -568,11 +583,55 @@ def compare_segsum(name: str, keys: torch.Tensor, vals: torch.Tensor, n: int) ->
     return out
 
 
+def compare_route(name: str, bins, d_gmaj: torch.Tensor, n: int) -> dict:
+    """The segment-sum kernel's route form (`route_by_sort`: the runs
+    `gmaj_starts` of the per-entry rows in Gaussian-major order) vs its plain
+    version `segsum_runs_plain`: per column, max abs error <= SEGSUM_REL_MAX
+    * (max |plain| + 1); padding columns zero; two launches bitwise equal,
+    one launch each. Raises otherwise. Comparison launches do not count."""
+    before = dict(raster.LAUNCHES)
+    a = raster.route_by_sort(bins, d_gmaj, n)
+    b = raster.route_by_sort(bins, d_gmaj, n)
+    torch.cuda.synchronize()
+    launched = raster.LAUNCHES["segsum"] - before["segsum"]
+    raster.LAUNCHES.update(before)
+    p = raster.segsum_runs_plain(bins.gmaj_starts, d_gmaj, n, raster.ATTR_WIDTH)
+    check(launched == 2, f"route {name}: {launched} segsum launches for 2 routes")
+    check(bool(torch.isfinite(a).all()), f"route {name}: not finite")
+    col_err = (a - p).abs().amax(0)
+    col_max = p.abs().amax(0)
+    runs = bins.gmaj_starts[1:] - bins.gmaj_starts[:-1]
+    out = {"max_abs_err": float(col_err.max()),
+           "max_rel_err": float((col_err / (col_max + 1)).max()),
+           "bitwise_repeat": bool(torch.equal(a, b)),
+           "pad_max_abs": float(a[:, raster.NUM_GRADS:].abs().max())}
+    emit("route_vs_plain", case=name, entries=bins.num_entries, keys=n,
+         longest_run=int(runs.max()), keys_with_entries=int((runs > 0).sum()), **out)
+    check(bool((col_err <= SEGSUM_REL_MAX * (col_max + 1)).all()),
+          f"route {name}: errors {col_err.tolist()} vs max {col_max.tolist()}")
+    check(out["pad_max_abs"] == 0.0, f"route {name}: padding columns not zero")
+    check(out["bitwise_repeat"], f"route {name}: two launches differ")
+    return out
+
+
 def segsum_bound_ms(rows: int, cols: int, n: int) -> tuple:
-    """Least time for the segment sum on an H100 SXM: keys and rows read
-    once, the [n, cols] sums written once, or its rows * cols additions."""
+    """Least time for the segment sum's keys form on an H100 SXM: keys and
+    rows read once, the [n, cols] sums written once, or its rows * cols
+    additions."""
     t_bytes = (rows * (4 + 4 * cols) + n * 4 * cols) / H100_HBM_BYTES_PER_S * 1e3
     t_ops = rows * cols / H100_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def route_bound_ms(entries: int, n: int) -> tuple:
+    """Least time for the route by sort's reduction on an H100 SXM: the
+    per-entry rows, which the backward stored Gaussian-major, read once
+    (entries x 40 B), the run starts read once ((n + 1) x 4 B), the [n, 10]
+    sums written once (n x 40 B), or the entries x 10 additions. The
+    backward, not the reduction, reads the entry -> slot map."""
+    cols = raster.NUM_GRADS
+    t_bytes = (entries * 4 * cols + (n + 1) * 4 + n * 4 * cols) / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = entries * cols / H100_FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -588,8 +647,8 @@ def route_grads(bins, attrs, bg, W, H, cots, by_sort: bool) -> torch.Tensor:
 
 
 def compare_routes(name: str, bins, attrs, bg, W, H, cots) -> dict:
-    """RasterizeFn's sort route (per-entry kernel, Gaussian-major reorder,
-    segment-sum kernel) vs raster_bwd's atomic route on the same bins and
+    """RasterizeFn's sort route (per-entry kernel, then the segment-sum
+    kernel's route form) vs raster_bwd's atomic route on the same bins and
     cotangents: per column group within ROUTE_REL_MAX * max|g| (atomics
     reorder the latter's sums); two sort-route runs bitwise equal (no
     atomics anywhere on it). Raises otherwise; comparison launches do not
@@ -1062,7 +1121,8 @@ def pipeline_phase(dev) -> dict:
 
     # outside the counted run, at view 0: the forward and the per-entry
     # backward against their plain versions (which count the work the bounds
-    # price), the sort route against the atomic one, the segment sum
+    # price), the sort route against the atomic one, the segment sum's route
+    # form and keys form against their plain versions
     before = dict(raster.LAUNCHES)
     cam = cams[0]
     with torch.no_grad():
@@ -1073,41 +1133,68 @@ def pipeline_phase(dev) -> dict:
         bins, attrs, kbg, T, last = (cmp4[k] for k in ("bins", "attrs", "bg", "T", "last"))
         cots = bwd4["cots"]
         compare_routes("pipeline_4k_view0", bins, attrs, kbg, W, H, cots)
-        entries = raster.raster_bwd_entries(bins, attrs, kbg, T, last, *cots, W, H)
+        bwd_args = (bins, attrs, kbg, T, last, *cots, W, H)
+        d_gmaj = raster.raster_bwd_entries(*bwd_args)  # Gaussian-major, as the main path's
+        entries = d_gmaj[bins.order]  # the same rows in the tiles' order
         keys, n = bins.gmaj_ids, attrs.shape[0]
-        vals = raster.gaussian_major(bins, entries)
-        seg = compare_segsum("pipeline_4k_view0", keys, vals, n)
+        route = compare_route("pipeline_4k_view0", bins, d_gmaj, n)
+        seg = compare_segsum("pipeline_4k_view0", keys, d_gmaj, n)
 
-        # kernel and stage times at view 0 (CUDA events)
+        # kernel and stage times at view 0: CUDA events around one call (host
+        # enqueue included), and for the route's parts the profiler's device
+        # time of the kernels each call launches
         t_fwd = cuda_times(lambda: raster.raster_fwd(bins, attrs, kbg, W, H))
-        t_entries = cuda_times(
-            lambda: raster.raster_bwd_entries(bins, attrs, kbg, T, last, *cots, W, H))
-        t_reorder = cuda_times(lambda: raster.gaussian_major(bins, entries))
-        t_seg = cuda_times(lambda: raster.segsum(keys, vals, n))
-        t_seg_plain = cuda_times(lambda: raster.segsum_plain(keys, vals, n))
-        t_seg_lib = cuda_times(
-            lambda: torch.zeros(n, vals.shape[1], device=dev).index_add_(0, keys, vals))
-        t_atomic = cuda_times(lambda: raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W, H))
+        t_entries = cuda_times(lambda: raster.raster_bwd_entries(*bwd_args))
+        t_route = cuda_times(lambda: raster.route_by_sort(bins, d_gmaj, n))
+        t_route_plain = cuda_times(lambda: raster.segsum_runs_plain(
+            bins.gmaj_starts, d_gmaj, n, raster.ATTR_WIDTH))
+        t_seg = cuda_times(lambda: raster.segsum(keys, d_gmaj, n))
+        t_seg_plain = cuda_times(lambda: raster.segsum_plain(keys, d_gmaj, n))
+        t_atomic = cuda_times(lambda: raster.raster_bwd(*bwd_args))
+        route_parts = {
+            "route": lambda: raster.route_by_sort(bins, d_gmaj, n),
+            "reorder": lambda: raster.gaussian_major(bins, entries),
+            "keys_form": lambda: raster.segsum(keys, d_gmaj, n),
+            "two_step_route": lambda: raster.segsum(keys, raster.gaussian_major(bins, entries), n),
+            "index_add_gauss_ids": lambda: torch.zeros(n, raster.NUM_GRADS, device=dev)
+            .index_add_(0, bins.gauss_ids, entries),
+            "index_add_sorted_keys": lambda: torch.zeros(n, raster.NUM_GRADS, device=dev)
+            .index_add_(0, keys, d_gmaj),
+            "backward_per_entry": lambda: raster.raster_bwd_entries(*bwd_args),
+        }
+        parts = {k: dict(events=cuda_times(fn), device_ms=kernel_device_ms(fn))
+                 for k, fn in route_parts.items()}
+    t_route_lib = parts["index_add_gauss_ids"]["events"]
+    t_seg_lib = parts["index_add_sorted_keys"]["events"]
     bounds = {
         "raster_fwd": kernel_bound_ms(bins, attrs, W, H, cmp4["pairs"]),
         "raster_bwd_entries": kernel_bound_ms_bwd(bins, attrs, W, H, bwd4["counts"],
                                                   per_entry=True),
         "raster_bwd": kernel_bound_ms_bwd(bins, attrs, W, H, bwd4["counts"]),
-        "segsum": segsum_bound_ms(keys.shape[0], vals.shape[1], n),
+        "segsum": route_bound_ms(bins.num_entries, n),
+        "segsum_keys": segsum_bound_ms(keys.shape[0], d_gmaj.shape[1], n),
     }
     times = {"raster_fwd": t_fwd, "raster_bwd_entries": t_entries, "raster_bwd": t_atomic,
-             "segsum": t_seg}
-    work = {"raster_fwd": cmp4["stats"], "raster_bwd_entries": bwd4["counts"],
-            "raster_bwd": bwd4["counts"], "segsum": dict(plain=t_seg_plain,
-                                                         library_index_add=t_seg_lib)}
+             "segsum": t_route, "segsum_keys": t_seg}
+    work = {"raster_fwd": cmp4["stats"],
+            "raster_bwd_entries": bwd4["counts"],
+            "raster_bwd": bwd4["counts"],
+            "segsum": dict(form="route", plain=t_route_plain, library_index_add_gauss=t_route_lib),
+            "segsum_keys": dict(form="keys", plain=t_seg_plain, library_index_add_sorted=t_seg_lib)}
     for kernel, t in times.items():
         emit("kernel_time", kernel=kernel, scene="pipeline_4k_view0", kernel_ms=t,
              bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], entries=bins.num_entries,
              gaussians=n, **work[kernel])
+    # the route by sort: one launch over the rows the backward stored
+    # Gaussian-major, beside the two-step form (reorder, then the keys form)
+    # and the library calls
+    emit("route_time", scene="pipeline_4k_view0", entries=bins.num_entries, gaussians=n,
+         parts=parts, route_bound_ms=bounds["segsum"][0],
+         keys_form_bound_ms=bounds["segsum_keys"][0], route=route, keys_form=seg)
     raster.LAUNCHES.update(before)  # comparison and timing launches do not count
     train_breakdown("pipeline_4k", model, state.opt_state, bundle, cam, gts[0], bg, cfg, extras,
-                    {"backward_kernel_per_entry": t_entries, "reorder": t_reorder,
-                     "segsum": t_seg, "backward_kernel_atomic_same_view": t_atomic})
+                    {"backward_kernel_per_entry": t_entries, "route_by_sort": t_route,
+                     "backward_kernel_atomic_same_view": t_atomic})
 
     # the pipeline's one-off costs
     iters = 50
@@ -1140,9 +1227,10 @@ def pipeline_phase(dev) -> dict:
     seg_bound, seg_bound_by = bounds["segsum"]
     return {"launches": launches,
             "per_launch": {k: (times[k]["median_ms"], bounds[k][0]) for k in times},
-            "segsum": dict(max_abs_err=seg["max_abs_err"], ms=t_seg["median_ms"],
-                           plain_ms=t_seg_plain["median_ms"], bound_ms=seg_bound,
-                           bound_by=seg_bound_by, library_ms=t_seg_lib["median_ms"])}
+            "segsum": dict(max_abs_err=max(route["max_abs_err"], seg["max_abs_err"]),
+                           ms=t_route["median_ms"], plain_ms=t_route_plain["median_ms"],
+                           bound_ms=seg_bound, bound_by=seg_bound_by,
+                           library_ms=t_route_lib["median_ms"])}
 
 
 def rank_kernels(serving: dict, train_launches: dict, pipe: dict) -> None:
@@ -1150,7 +1238,8 @@ def rank_kernels(serving: dict, train_launches: dict, pipe: dict) -> None:
     first any kernel slower than its library call (by that factor), then by
     the sum over the paths of launches x (kernel ms - bound ms), each path
     priced at its own shapes: the 1080p main view for serving and the 1080p
-    steps, view 0 of the 4K pipeline (per-entry backward) for its 12."""
+    steps, view 0 of the 4K pipeline (per-entry backward, the segment sum's
+    route form against `index_add_` by `gauss_ids`) for its 12."""
     lost = {
         "raster_fwd": (serving["serving_launches"]["raster_fwd"] + train_launches["raster_fwd"])
         * (serving["raster_fwd"]["ms"] - serving["raster_fwd"]["bound_ms"]),
@@ -1188,8 +1277,14 @@ def main() -> int:
     # 2. build every kernel from the checkout's sources
     build_kernels(root)
 
-    # 3. the segment-sum kernel on the adversarial key layouts
-    for name, (keys, vals, n) in segsum_layouts().items():
+    # 3. the segment-sum kernel on the adversarial key layouts at the route's
+    # width (10 columns), and on two of them at the narrowest and the widest
+    # width of the kernel's instance for other widths (3 and 16 columns)
+    cases = list(segsum_layouts().items())
+    for cols in (3, 16):
+        layouts = segsum_layouts(cols=cols)
+        cases += [(f"{name}@c={cols}", layouts[name]) for name in ("deep_run", "sparse_jumps")]
+    for name, (keys, vals, n) in cases:
         compare_segsum(name, torch.tensor(keys, device=dev), torch.tensor(vals, device=dev), n)
 
     # 4. serving: kernels vs plain, routes, tile path vs oracle, 5 views, timings

@@ -16,10 +16,13 @@
 // workarounds and are not carried over. The kernel has two epilogues:
 //   - `raster_bwd` sums into per-Gaussian rows with atomics (the route below
 //     2^20 entries of budget, where JAX gathers);
-//   - `raster_bwd_entries` writes each entry's 10 sums to its own row of
-//     d_entries [E, 10], as `_stream_bwd_kernel` writes dT [16, L_pad]. The
-//     caller reorders them Gaussian-major and sums them with csrc/segsum.cu
-//     (the route by sort, `_route_by_sort`, 1169-1231).
+//   - `raster_bwd_entries` writes each entry's 10 sums to a row of its own
+//     in d_entries [E, 10] (as `_stream_bwd_kernel` writes dT [16, L_pad]):
+//     row entry_dst[e]. The route by sort (`_route_by_sort`, 1169-1231)
+//     passes each entry's Gaussian-major slot, so the rows land Gaussian by
+//     Gaussian and csrc/segsum.cu sums contiguous runs, with no reordered
+//     copy (reading entry_dst and the scattered 40-B stores add 1-4% to
+//     the kernel, most of it the reads: PERF.md).
 //
 // Math, per pixel, over the entries i it blended (w_i = alpha_i T_i,
 // T_{i+1} = T_i (1 - alpha_i), color = sum_i w_i c_i + T_final bg,
@@ -122,8 +125,9 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[kSpread], int la
 //   a = (mean x, mean y, conic a, conic b)
 //   b = (conic c, opacity, r, g)
 //   c = (b, depth, 0, 0); in shared memory c.z, c.w hold the cull data
-// kPerEntry: write entry e's sums to d_out[e] (d_out is [E, 10]); otherwise
-// add them into d_out[gauss_ids[e]] with atomics (d_out is [N, 12]).
+// kPerEntry: write entry e's sums to d_out[entry_dst[e]] (d_out is [E, 10]);
+// otherwise add them into d_out[gauss_ids[e]] with atomics (d_out is
+// [N, 12]; entry_dst unused).
 template <bool kPerEntry>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
@@ -136,7 +140,8 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
                   const float* __restrict__ g_color,   // [3, H, W]
                   const float* __restrict__ g_depth,   // [H, W]
                   const float* __restrict__ g_alpha,   // [H, W]
-                  float* __restrict__ d_out)           // zeroed, see kPerEntry
+                  float* __restrict__ d_out,           // zeroed, see kPerEntry
+                  const int64_t* __restrict__ entry_dst)  // [E], see kPerEntry
 {
   __shared__ float4 s_a[2][kBatch];
   __shared__ float4 s_b[2][kBatch];
@@ -319,7 +324,7 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
       if (any) {
         if constexpr (kPerEntry) {
           float2* dst = reinterpret_cast<float2*>(
-              d_out + static_cast<int64_t>(kGrads) * (start + base + t));
+              d_out + static_cast<int64_t>(kGrads) * entry_dst[start + base + t]);
 #pragma unroll
           for (int k = 0; k < kGrads / 2; ++k) dst[k] = make_float2(s[2 * k], s[2 * k + 1]);
         } else {
@@ -339,7 +344,7 @@ template <bool kPerEntry>
 int launch(const void* tile_starts, const void* gauss_ids, const void* attrs,
            const void* bg, int width, int height, const void* T_final,
            const void* last, const void* g_color, const void* g_depth,
-           const void* g_alpha, void* d_out, void* stream) {
+           const void* g_alpha, void* d_out, const void* entry_dst, void* stream) {
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
   raster_bwd_kernel<kPerEntry><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tile_starts),
@@ -348,7 +353,7 @@ int launch(const void* tile_starts, const void* gauss_ids, const void* attrs,
       width, height, static_cast<const float*>(T_final),
       static_cast<const int32_t*>(last), static_cast<const float*>(g_color),
       static_cast<const float*>(g_depth), static_cast<const float*>(g_alpha),
-      static_cast<float*>(d_out));
+      static_cast<float*>(d_out), static_cast<const int64_t*>(entry_dst));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -356,8 +361,10 @@ int launch(const void* tile_starts, const void* gauss_ids, const void* attrs,
 
 // Plain C entry points (loaded with ctypes). The output must be zeroed by
 // the caller: `d_attrs` [N, 12] (16-B aligned rows) for `raster_bwd`,
-// `d_entries` [E, 10] for `raster_bwd_entries`. Each launches on `stream`,
-// never synchronises, and returns cudaGetLastError() (0 on success).
+// `d_entries` [E, 10] for `raster_bwd_entries`, whose `entry_dst` [E] int64
+// (a permutation of the rows) says where entry e's row goes. Each launches
+// on `stream`, never synchronises, and returns cudaGetLastError() (0 on
+// success).
 extern "C" int raster_bwd(const void* tile_starts, const void* gauss_ids,
                           const void* attrs, const void* bg,
                           int width, int height,
@@ -365,7 +372,7 @@ extern "C" int raster_bwd(const void* tile_starts, const void* gauss_ids,
                           const void* g_color, const void* g_depth,
                           const void* g_alpha, void* d_attrs, void* stream) {
   return launch<false>(tile_starts, gauss_ids, attrs, bg, width, height, T_final,
-                       last, g_color, g_depth, g_alpha, d_attrs, stream);
+                       last, g_color, g_depth, g_alpha, d_attrs, nullptr, stream);
 }
 
 extern "C" int raster_bwd_entries(const void* tile_starts, const void* gauss_ids,
@@ -373,9 +380,10 @@ extern "C" int raster_bwd_entries(const void* tile_starts, const void* gauss_ids
                                   int width, int height,
                                   const void* T_final, const void* last,
                                   const void* g_color, const void* g_depth,
-                                  const void* g_alpha, void* d_entries, void* stream) {
+                                  const void* g_alpha, void* d_entries,
+                                  const void* entry_dst, void* stream) {
   return launch<true>(tile_starts, gauss_ids, attrs, bg, width, height, T_final,
-                      last, g_color, g_depth, g_alpha, d_entries, stream);
+                      last, g_color, g_depth, g_alpha, d_entries, entry_dst, stream);
 }
 
 // Resident blocks per SM of either epilogue's kernel, stored in `blocks`;

@@ -22,10 +22,14 @@ budget rule) sizes nothing here; it decides the backward's route
 
 The bins keep the entries' Gaussian-major order beside the sorted one:
 before the sort the entries are laid out Gaussian by Gaussian, so
-`gmaj_ids` is non-decreasing, and `order` maps each sorted slot to its
-Gaussian-major slot. The sort-route backward reorders per-entry gradients
-with `order` and sums runs of equal `gmaj_ids` (`raster.segsum`), without
-a second sort.
+`gmaj_ids` is non-decreasing, Gaussian g's entries fill the Gaussian-major
+slots [gmaj_starts[g], gmaj_starts[g + 1]) (the exclusive scan of step 2,
+its total appended), and `order` maps each sorted slot to its
+Gaussian-major slot (the sort's permutation). The sort-route backward
+stores each entry's gradient row at `order[e]`
+(`raster.raster_bwd_entries`) and sums the runs
+of `gmaj_starts` (`raster.route_by_sort`), without a second sort and
+without a reordered copy.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ class TileBins:
     nx: int  # tiles per row
     ny: int  # tile rows
     gmaj_ids: torch.Tensor  # [L] int32 Gaussian per Gaussian-major slot, non-decreasing
+    gmaj_starts: torch.Tensor  # [N + 1] int32: Gaussian g's Gaussian-major slots start here
     order: torch.Tensor  # [L] int64: sorted slot -> Gaussian-major slot
 
     @property
@@ -82,8 +87,10 @@ def bin_gaussians(
         gid = torch.repeat_interleave(torch.arange(n, device=dev), cov)  # host sync
         if gid.shape[0] >= 2**31:
             raise ValueError(f"{gid.shape[0]} tile entries overflow the int32 ranges")
-        seg_start = torch.cumsum(cov, 0) - cov  # exclusive scan
-        j = torch.arange(gid.shape[0], device=dev) - seg_start[gid]
+        # exclusive scan with the total appended: Gaussian g's Gaussian-major slots
+        gmaj_starts = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        torch.cumsum(cov, 0, dtype=torch.int32, out=gmaj_starts[1:])
+        j = torch.arange(gid.shape[0], device=dev) - gmaj_starts[gid]
         w = span[gid, 0].to(torch.int64)
         tx = rect_min[gid, 0].to(torch.int64) + j % w
         ty = rect_min[gid, 1].to(torch.int64) + j // w
@@ -102,5 +109,6 @@ def bin_gaussians(
         nx=nx,
         ny=ny,
         gmaj_ids=gid,
+        gmaj_starts=gmaj_starts,
         order=order,
     )

@@ -6,21 +6,24 @@ TPU's Pallas stream kernels, the untiling (`assemble_image`) and the
 backward's entry -> Gaussian routing become three hand-written CUDA kernels:
 `csrc/raster_fwd.cu` writes the image directly; `csrc/raster_bwd.cu` writes
 gradients of the packed attribute rows, per Gaussian (atomics) or per tile
-entry; `csrc/segsum.cu` sums key-sorted per-entry rows per Gaussian.
+entry; `csrc/segsum.cu` sums per-entry rows per Gaussian.
 
 The backward routes as the JAX package does (`_stream_gather_bwd`,
 1254-1255): below an entry budget of `SORT_ROUTE_MIN_L` the kernel's atomic
 epilogue sums per Gaussian; at or above it (`sort_route`), the kernel writes
-per-entry gradients, which are put into Gaussian-major order and summed by
-`segsum`, with no atomics.
+per-entry gradients, each stored at its entry's Gaussian-major slot
+(`TileBins.order`), and `route_by_sort` sums each Gaussian's run of slots
+(`TileBins.gmaj_starts`) in one launch of the segment-sum kernel, with no
+atomics and no reordered copy.
 
-`raster_fwd`, `raster_bwd`, `raster_bwd_entries` and `segsum` are the
-wrappers: on CUDA tensors they launch their kernel (and count the launch in
-`LAUNCHES`; both backward epilogues count as "raster_bwd"), on CPU tensors
-they run the plain versions, the same arithmetic in PyTorch ops. There is
-no other fallback: a CUDA tensor never reaches a plain version through a
-wrapper, and a build or launch failure raises. `rasterize` is
-differentiable through `RasterizeFn`.
+`raster_fwd`, `raster_bwd`, `raster_bwd_entries`, `segsum` and
+`segsum_runs` (which `route_by_sort` calls) are the wrappers: on CUDA
+tensors they launch their kernel (and count the launch in `LAUNCHES`; both
+backward epilogues count as "raster_bwd", both segment-sum forms as
+"segsum"), on CPU tensors they run the plain versions, the same arithmetic
+in PyTorch ops. There is no other fallback: a CUDA tensor never reaches a
+plain version through a wrapper, and a build or launch failure raises.
+`rasterize` is differentiable through `RasterizeFn`.
 """
 
 from __future__ import annotations
@@ -304,10 +307,10 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         if k % 32 == 31 and bool((done | ~active).all()):
             break
 
-    def image(x):  # [..., T, 256] -> [..., H, W]
+    def image(x):  # [..., T, 256] -> [..., H, W], contiguous as the kernel's outputs
         lead = x.shape[:-2]
         x = x.reshape(*lead, ny, nx, TILE, TILE).movedim(-2, -3)
-        return x.reshape(*lead, ny * TILE, nx * TILE)[..., :height, :width]
+        return x.reshape(*lead, ny * TILE, nx * TILE)[..., :height, :width].contiguous()
 
     if stats is not None:
         stats["pairs"] = int(pairs)
@@ -361,18 +364,24 @@ def raster_bwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
 
 @functools.cache
 def _raster_bwd_fn(entry: str):
-    """`raster_bwd` (atomic epilogue) or `raster_bwd_entries` (per-entry)."""
+    """`raster_bwd` (atomic epilogue) or `raster_bwd_entries` (per-entry,
+    with the rows' destinations)."""
     fn = getattr(_build.load("raster_bwd"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+    pointers = 8 if entry == "raster_bwd_entries" else 7
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * pointers
     fn.restype = ctypes.c_int
     return fn
 
 
 def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
-                     width, height, per_entry: bool = False) -> torch.Tensor:
+                     width, height, entry_dst: torch.Tensor | None = None) -> torch.Tensor:
+    """The atomic epilogue, or with `entry_dst` [E] int64 the per-entry one,
+    which stores entry e's row at row entry_dst[e]."""
+    per_entry = entry_dst is not None
     fn = _raster_bwd_fn("raster_bwd_entries" if per_entry else "raster_bwd")
     dev = attrs.device
     shape = (bins.num_entries, NUM_GRADS) if per_entry else (attrs.shape[0], ATTR_WIDTH)
+    dst = (entry_dst.data_ptr(),) if per_entry else ()
     with torch.cuda.device(dev):
         d_out = torch.zeros(shape, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -380,7 +389,7 @@ def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
             bins.tile_starts.data_ptr(), bins.gauss_ids.data_ptr(),
             attrs.data_ptr(), bg.data_ptr(), width, height,
             T_final.data_ptr(), last.data_ptr(), g_color.data_ptr(),
-            g_depth.data_ptr(), g_alpha.data_ptr(), d_out.data_ptr(), stream,
+            g_depth.data_ptr(), g_alpha.data_ptr(), d_out.data_ptr(), *dst, stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
@@ -394,7 +403,8 @@ def segsum(keys: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
     """Per-key sums of key-sorted rows: [n, C] float32, row g the sum of
     the rows of `vals` [E, C] float32 whose key (`keys` [E] int32,
     non-decreasing) is g, 0 for absent keys. Rows with a key >= n are
-    ignored, NaN included. The kernel needs 1 <= C <= 16."""
+    ignored, NaN included. The kernel needs 1 <= C <= 16. On CUDA one
+    `searchsorted` finds the runs, then `segsum_runs` sums them."""
     if keys.device != vals.device:
         raise ValueError(f"keys are on {keys.device}, vals on {vals.device}")
     if keys.dtype != torch.int32 or vals.dtype != torch.float32:
@@ -410,31 +420,9 @@ def segsum(keys: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
         return segsum_plain(keys, vals, n)
     if vals.device.type != "cuda":
         raise ValueError(f"no segment sum for device {vals.device}")
-    return _segsum_cuda(keys, vals, n)
-
-
-@functools.cache
-def _segsum_fn():
-    fn = _build.load("segsum").segsum
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _segsum_cuda(keys, vals, n) -> torch.Tensor:
-    dev = vals.device
-    if n == 0:  # nothing to launch
-        return torch.empty(0, vals.shape[1], dtype=torch.float32, device=dev)
-    fn = _segsum_fn()
-    with torch.cuda.device(dev):
-        out = torch.empty(n, vals.shape[1], dtype=torch.float32, device=dev)  # every row written
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(keys.data_ptr(), vals.data_ptr(), keys.shape[0], n, vals.shape[1],
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
-    LAUNCHES["segsum"] += 1
-    return out
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=keys.device)
+    starts = torch.searchsorted(keys, bounds, out_int32=True)  # first row of each key's run
+    return _segsum_runs_cuda(starts, vals, n, vals.shape[1])
 
 
 def segsum_plain(keys: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
@@ -447,6 +435,71 @@ def segsum_plain(keys: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor
     out = torch.zeros(n + 1, vals.shape[1], dtype=vals.dtype, device=vals.device)
     out.index_add_(0, torch.where(sent, n, k), v)
     return out[:n]
+
+
+def segsum_runs(starts: torch.Tensor, vals: torch.Tensor, n: int,
+                width: int | None = None) -> torch.Tensor:
+    """Sums by runs of rows: [n, width] float32 (width defaults to C), row g
+    the sum of rows [starts[g], starts[g + 1]) of `vals` [E, C] float32, in
+    row order; columns C..width-1 are 0. `starts` [n + 1] int32
+    non-decreasing. The kernel needs 1 <= C <= width <= 16."""
+    dev = vals.device
+    for name, t, dtype in (("starts", starts, torch.int32), ("vals", vals, torch.float32)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, vals on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    width = vals.shape[1] if width is None else width
+    if vals.dim() != 2 or not 1 <= vals.shape[1] <= width <= 16:
+        raise ValueError(f"vals must be [E, C] with 1 <= C <= {width} <= 16, "
+                         f"got {tuple(vals.shape)}")
+    if starts.shape != (n + 1,):
+        raise ValueError(f"starts must be [{n + 1}], got {tuple(starts.shape)}")
+    if dev.type == "cpu":
+        return segsum_runs_plain(starts, vals, n, width)
+    if dev.type != "cuda":
+        raise ValueError(f"no segment sum for device {dev}")
+    return _segsum_runs_cuda(starts, vals, n, width)
+
+
+@functools.cache
+def _segsum_fn():
+    fn = _build.load("segsum").segsum
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _segsum_runs_cuda(starts, vals, n, width) -> torch.Tensor:
+    dev = vals.device
+    if n == 0:  # nothing to launch
+        return torch.empty(0, width, dtype=torch.float32, device=dev)
+    fn = _segsum_fn()
+    with torch.cuda.device(dev):
+        out = torch.empty(n, width, dtype=torch.float32, device=dev)  # every element written
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(starts.data_ptr(), vals.data_ptr(), n, vals.shape[1], width, out.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
+    LAUNCHES["segsum"] += 1
+    return out
+
+
+def segsum_runs_plain(starts: torch.Tensor, vals: torch.Tensor, n: int,
+                      width: int | None = None) -> torch.Tensor:
+    """`segsum_runs` in PyTorch ops: keys from the run lengths, then
+    `index_add_` of the runs' rows into the first C columns of zeros."""
+    width = vals.shape[1] if width is None else width
+    total = int(starts[n]) if n else 0
+    keys = torch.repeat_interleave(torch.arange(n, device=vals.device),
+                                   (starts[1:] - starts[:-1]).to(torch.int64),
+                                   output_size=total)
+    out = torch.zeros(n, width, dtype=vals.dtype, device=vals.device)
+    out[:, :vals.shape[1]].index_add_(0, keys, vals[:total])
+    return out
 
 
 def sort_route(n_slots: int, width: int, height: int, config: RasterizerConfig) -> bool:
@@ -463,35 +516,44 @@ def sort_route(n_slots: int, width: int, height: int, config: RasterizerConfig) 
 def gaussian_major(bins: TileBins, d_entries: torch.Tensor) -> torch.Tensor:
     """Per-entry rows of `bins.gauss_ids`' order put into Gaussian-major
     order, where the keys `bins.gmaj_ids` are sorted: row `order[e]` takes
-    row e."""
+    row e. The first step of the two-step route that `raster_bwd_entries`'
+    stores make unnecessary; kept as its plain form."""
     return torch.empty_like(d_entries).index_copy_(0, bins.order, d_entries)
 
 
-def route_by_sort(bins: TileBins, d_entries: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-entry gradients [E, 10] -> per-Gaussian rows [n, 12] (columns
-    10-11 zero): reorder Gaussian-major, then `segsum` (the port of
-    `_route_by_sort`, `tile_raster.py:1169-1231`)."""
-    d = segsum(bins.gmaj_ids, gaussian_major(bins, d_entries), n)
-    return F.pad(d, (0, ATTR_WIDTH - NUM_GRADS))
+def route_by_sort(bins: TileBins, d_gmaj: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-entry gradients in Gaussian-major order [E, 10] (as
+    `raster_bwd_entries` writes them) -> per-Gaussian rows [n, 12] (columns
+    10-11 zero), the port of `_route_by_sort` (`tile_raster.py:1169-1231`):
+    `segsum_runs` over the runs `bins.gmaj_starts`, one launch on CUDA. On
+    the CPU, bitwise the keys form `segsum_plain(bins.gmaj_ids, d_gmaj, n)`,
+    padded."""
+    if d_gmaj.shape != (bins.num_entries, NUM_GRADS):
+        raise ValueError(f"d_gmaj must be [{bins.num_entries}, {NUM_GRADS}], "
+                         f"got {tuple(d_gmaj.shape)}")
+    return segsum_runs(bins.gmaj_starts, d_gmaj, n, width=ATTR_WIDTH)
 
 
 def raster_bwd_entries(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                        T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
                        g_depth: torch.Tensor, g_alpha: torch.Tensor,
                        width: int, height: int) -> torch.Tensor:
-    """`raster_bwd` with the per-entry epilogue: d_entries [E, 10] float32,
-    row e holding entry e's (of `bins.gauss_ids`) gradient terms summed over
-    the pixels of its tile, in the columns of `raster_bwd`. Deterministic:
+    """`raster_bwd` with the per-entry epilogue: d_entries [E, 10] float32 in
+    Gaussian-major order (`route_by_sort`'s input): entry e's (of
+    `bins.gauss_ids`) gradient terms, summed over the pixels of its tile,
+    in the columns of `raster_bwd`, at row `bins.order[e]`. Deterministic:
     each entry belongs to one tile, so no atomics are needed."""
     _check_inputs(bins, attrs, bg, width, height)
     _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
+    if bins.order.device != attrs.device or bins.order.dtype != torch.int64:
+        raise ValueError("bins.order must be int64 on the device of attrs")
     if attrs.device.type == "cpu":
         return raster_bwd_entries_plain(bins, attrs, bg, T_final, last, g_color, g_depth,
                                         g_alpha, width, height)
     if attrs.device.type != "cuda":
         raise ValueError(f"no rasterizer for device {attrs.device}")
     return _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
-                            width, height, per_entry=True)
+                            width, height, entry_dst=bins.order)
 
 
 def raster_bwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
@@ -528,9 +590,9 @@ def raster_bwd_entries_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tens
                              g_alpha: torch.Tensor, width: int, height: int,
                              stats: dict | None = None) -> torch.Tensor:
     """`raster_bwd_plain` with the per-entry epilogue: each step's per-tile
-    sums go to their entry's row by position (`index_copy_`), not into the
-    Gaussian's row. Returns d_entries [E, 10], zero for entries no pixel
-    reached."""
+    sums go to their entry's Gaussian-major row `bins.order[e]`
+    (`index_copy_`), not into the Gaussian's row. Returns d_entries [E, 10],
+    zero for entries no pixel reached."""
     return _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
                       width, height, True, stats)
 
@@ -556,6 +618,7 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
     gD = tiles(g_depth, 0.0)
     tail = T * (gC[0] * bg[0] + gC[1] * bg[1] + gC[2] * bg[2] - tiles(g_alpha, 0.0))
     rows = bins.num_entries if per_entry else attrs.shape[0]
+    entry_row = bins.order if per_entry else None
     d = torch.zeros(rows, NUM_GRADS, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)  # live, faint, far
@@ -605,7 +668,7 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
         sums = terms.sum(1)  # [T, 10]
         if per_entry:
             has = k < counts_t  # tiles whose range holds an entry k
-            d.index_copy_(0, pos[has], sums[has])
+            d.index_copy_(0, entry_row[pos[has]], sums[has])
         else:
             d.index_add_(0, g, sums)
     if stats is not None:
@@ -618,7 +681,7 @@ class RasterizeFn(torch.autograd.Function):
     """Differentiable compositing of packed attribute rows over fixed bins:
     forward `raster_fwd` (saving the final T and last contributor), backward
     `raster_bwd` (atomic epilogue), or with `by_sort` `raster_bwd_entries`
-    then `route_by_sort`. On CPU tensors all of them run their plain
+    (rows in Gaussian-major order) then `route_by_sort`. On CPU tensors all of them run their plain
     versions, so the forward builds no graph and the hand-derived backward
     is the one used."""
 

@@ -109,10 +109,23 @@ def port_render(case, backend="cuda"):
                    rotations=t(quats), shs=t(shs), active_sh_degree=3, backend=backend)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_project(case):
+    """The JAX projection of a forward case, computed once and compiled as
+    one program: op by op it takes seconds, and a dozen tests read it."""
+    (jcam, _), (means, scales, quats, opac, shs), _, _, _ = CASES[case]()
+
+    def project(means, opac, scales, quats, shs):
+        return jproject.project(jcam, means, opac, scales=scales, rotations=quats, shs=shs,
+                                active_sh_degree=3)
+
+    return jax.jit(project)(*(jnp.asarray(a) for a in (means, opac, scales, quats, shs)))
+
+
 def project_both(case):
-    (jcam, tcam), (means, scales, quats, opac, shs), _, _, _ = CASES[case]()
-    j = jproject.project(jcam, jnp.asarray(means), jnp.asarray(opac), scales=jnp.asarray(scales),
-                         rotations=jnp.asarray(quats), shs=jnp.asarray(shs), active_sh_degree=3)
+    """(JAX projection, port projection, port camera) of a forward case."""
+    j = _jax_project(case)
+    (_, tcam), (means, scales, quats, opac, shs), _, _, _ = CASES[case]()
     t = tproject.project(tcam, torch.tensor(means), torch.tensor(opac),
                          scales=torch.tensor(scales), rotations=torch.tensor(quats),
                          shs=torch.tensor(shs), active_sh_degree=3)
@@ -166,7 +179,8 @@ def test_projection_culls_behind_near_plane():
 def test_binning_per_tile_lists_match_jax(case):
     j, t, tcam = project_both(case)
     W, H = tcam.width, tcam.height
-    jb = jbinning.bin_gaussians(j, W, H, 16, 1 << 14, ptile=16, tile_cull=False)
+    jb = jax.jit(lambda proj: jbinning.bin_gaussians(proj, W, H, 16, 1 << 14, ptile=16,
+                                                     tile_cull=False))(j)
     assert int(jb.overflow) == 0
     tb = tbinning.bin_gaussians(t, W, H)
     num_tiles = tb.nx * tb.ny
@@ -274,7 +288,9 @@ def _jax_grads(jcam, arrays, backend, tile, deg):
                 + 0.05 * jnp.mean(out.rendered_alpha))
 
     args = tuple(jnp.asarray(a) for a in arrays)
-    return float(loss(*args)), jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*args)
+    # compiled as one program: op by op, the smooth oracle's gradient took ~20 s
+    value, grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4)))(*args)
+    return float(value), grads
 
 
 def _port_grads(tcam, arrays, backend, tile, deg):
@@ -451,7 +467,7 @@ def test_mean2d_offset_gradient_matches_jax():
         return (jnp.mean((out.render - target) ** 2) + 0.05 * jnp.mean(out.rendered_depth)
                 + 0.05 * jnp.mean(out.rendered_alpha))
 
-    want = np.asarray(jax.grad(jloss)(jnp.zeros((n, 2), jnp.float32)))
+    want = np.asarray(jax.jit(jax.grad(jloss))(jnp.zeros((n, 2), jnp.float32)))
     off = torch.zeros(n, 2, requires_grad=True)
     out = trender(tcam, torch.tensor(means), torch.tensor(opac), torch.tensor(bg),
                   scales=torch.tensor(scales), rotations=torch.tensor(quats),
@@ -526,13 +542,13 @@ SEG_B = 1024  # the JAX kernel's block (tile_raster.SEG_B)
 SEG_N = 2200  # keys 0..2199; key 2200 is the sentinel
 
 
-def segsum_layouts():
+def segsum_layouts(cols=10):
     """The four adversarial key layouts of
     tests/test_tile_raster.py::test_segsum_mxu_kernel_adversarial over
     4 * 1024 rows, rebuilt in numpy: a run over three whole blocks; dense
     runs crossing block boundaries with a sentinel suffix; sparse keys
     jumping close to the JAX kernel's window; one key per block. Values are
-    normal, NaN on the sentinel rows."""
+    normal ([4096, cols]), NaN on the sentinel rows."""
     rng = np.random.default_rng(3)
     n, L = SEG_N, 4 * SEG_B
     layouts = {
@@ -549,7 +565,7 @@ def segsum_layouts():
     for name, keys in layouts.items():
         keys = keys.astype(np.int32)
         assert keys.shape == (L,) and np.all(np.diff(keys) >= 0)
-        vals = rng.normal(size=(L, 10)).astype(np.float32)
+        vals = rng.normal(size=(L, cols)).astype(np.float32)
         vals[keys == n] = np.nan
         out[name] = (keys, vals)
     return out
@@ -629,8 +645,9 @@ def test_gaussian_major_order_without_a_second_sort():
 
 @pytest.mark.parametrize("case", ["seed2_n200", "opaque_early_stop"])
 def test_per_entry_backward_sums_to_the_atomic_one(case):
-    """raster_bwd_entries, summed per Gaussian, is raster_bwd: 1e-6 *
-    max|g| per column group (the same terms, summed in another order)."""
+    """raster_bwd_entries (rows in Gaussian-major order), summed per
+    Gaussian, is raster_bwd: 1e-6 * max|g| per column group (the same
+    terms, summed in another order)."""
     _, t, tcam = project_both(case)
     W, H = tcam.width, tcam.height
     bg = torch.tensor(CASES[case]()[2], dtype=torch.float32)
@@ -642,18 +659,18 @@ def test_per_entry_backward_sums_to_the_atomic_one(case):
     assert entries.shape == (bins.num_entries, raster.NUM_GRADS)
     atomic = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
     summed = torch.zeros(attrs.shape[0], raster.ATTR_WIDTH)
-    summed[:, :10].index_add_(0, bins.gauss_ids.long(), entries)
+    summed[:, :10].index_add_(0, bins.gmaj_ids.long(), entries)
     assert_grad_groups(summed, atomic, 1e-6, case)
     routed = raster.route_by_sort(bins, entries, attrs.shape[0])
     assert_grad_groups(routed, atomic, 1e-6, case)
-    # entries past every pixel's last contributor get nothing
+    # entries past every pixel's last contributor (sorted slots) get nothing
     unreached = torch.ones(bins.num_entries, dtype=torch.bool)
     starts = bins.tile_starts[:-1].long()
     for tile in range(bins.nx * bins.ny):
         y0, x0 = (tile // bins.nx) * 16, (tile % bins.nx) * 16
         reach = int(last[y0:y0 + 16, x0:x0 + 16].max()) if last[y0:y0 + 16, x0:x0 + 16].numel() else 0
         unreached[starts[tile]:starts[tile] + reach] = False
-    assert float(entries[unreached].abs().sum()) == 0.0
+    assert float(entries[bins.order[unreached]].abs().sum()) == 0.0
 
 
 ROUTE_BY_SORT = raster.route_by_sort  # the real one, for the spies below
@@ -754,10 +771,15 @@ def test_cuda_segsum_matches_plain():
     """The segment-sum kernel against segsum_plain on the adversarial
     layouts: within 1e-5 * (max|plain| + 1) per column (index_add_ sums in
     another order on the card), and two launches bitwise equal (no atomics,
-    a fixed order)."""
+    a fixed order). At the route's width (10 columns) on every layout, and
+    at 3 and 16 columns (the kernel's instance for other widths) on two."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
-    for name, (keys, vals) in segsum_layouts().items():
+    cases = list(segsum_layouts().items())
+    for cols in (3, 16):
+        layouts = segsum_layouts(cols)
+        cases += [(f"{name}@c={cols}", layouts[name]) for name in ("deep_run", "sparse_jumps")]
+    for name, (keys, vals) in cases:
         k = torch.tensor(keys, device="cuda")
         v = torch.tensor(vals, device="cuda")
         before = raster.LAUNCHES["segsum"]
@@ -772,10 +794,46 @@ def test_cuda_segsum_matches_plain():
 
 
 @pytest.mark.cuda
+def test_cuda_route_matches_plain():
+    """The segment-sum kernel's route form (`route_by_sort`: the runs
+    `gmaj_starts` of the per-entry rows, which the backward stores in
+    Gaussian-major order) against its plain version on seed2_n200: within
+    1e-5 * (max|plain| + 1) per column, the padding columns zero, two
+    launches bitwise equal, one launch counted each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    (_, tcam), (means, scales, quats, opac, shs), bg, _, _ = CASES["seed2_n200"]()
+    cam = tcam.to("cuda")
+    with torch.no_grad():
+        proj = tproject.project(cam, *(torch.tensor(a, device="cuda") for a in (means, opac)),
+                                scales=torch.tensor(scales, device="cuda"),
+                                rotations=torch.tensor(quats, device="cuda"),
+                                shs=torch.tensor(shs, device="cuda"), active_sh_degree=3)
+        bins = tbinning.bin_gaussians(proj, cam.width, cam.height)
+        attrs = raster.pack_attrs(proj)
+        bg_t = torch.tensor(bg, dtype=torch.float32, device="cuda")
+        _, _, _, T, last = raster.raster_fwd(bins, attrs, bg_t, cam.width, cam.height)
+        cots = [c.cuda() for c in cotangents(cam.width, cam.height, ("color", "depth", "alpha"))]
+        d_gmaj = raster.raster_bwd_entries(bins, attrs, bg_t, T, last, *cots, cam.width,
+                                           cam.height)
+        n = attrs.shape[0]
+        before = raster.LAUNCHES["segsum"]
+        a = raster.route_by_sort(bins, d_gmaj, n)
+        b = raster.route_by_sort(bins, d_gmaj, n)
+        torch.cuda.synchronize()
+        assert raster.LAUNCHES["segsum"] == before + 2
+        p = raster.segsum_runs_plain(bins.gmaj_starts, d_gmaj, n, raster.ATTR_WIDTH)
+    assert a.shape == (n, raster.ATTR_WIDTH) and torch.equal(a, b)
+    assert float(a[:, raster.NUM_GRADS:].abs().max()) == 0.0
+    assert bool(((a - p).abs() <= 1e-5 * (p.abs().amax(0) + 1)).all())
+
+
+@pytest.mark.cuda
 def test_cuda_sort_route_matches_atomic_route():
-    """On the card, seed2_n200: RasterizeFn's sort route (per-entry kernel,
-    reorder, segment-sum kernel) against the atomic route within 1e-5 *
-    max|g| per column group (atomics reorder the latter's sums)."""
+    """On the card, seed2_n200: RasterizeFn's sort route (per-entry kernel
+    storing Gaussian-major, then the segment-sum kernel's route form)
+    against the atomic route within 1e-5 * max|g| per column group (atomics
+    reorder the latter's sums)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
     (_, tcam), (means, scales, quats, opac, shs), bg, _, _ = CASES["seed2_n200"]()
