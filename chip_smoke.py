@@ -21,7 +21,13 @@ then drives the port's three paths:
   300,000-ray ground-truth model, then 12 iterations of `run_main_stage`
   with one densify event and one opacity reset, on 450,000 ray Gaussians +
   65,536 background slots, where the backward routes by sort through the
-  segment-sum kernel.
+  segment-sum kernel;
+- the command line: a synthetic COLMAP scene of 20 views at 1008x756
+  written to disk, the train CLI on it at `-r 2` (504x378, the size of
+  LLFF at `-r 8`) under the LLFF few-shot protocol (3 training views, every
+  8th view held out, >= 2,000 matches a pair, 2,000 init + 2,000 main
+  iterations), a run resumed from its checkpoint at 1,000, and the render
+  CLI; then the kernels against their plain versions at that size.
 
 It times the kernels, the stages and whole renders and steps with CUDA
 events, the host clock and the profiler.
@@ -49,11 +55,19 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from PIL import Image
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from scgaussian_tpu_torch.apps import render as render_cli
+from scgaussian_tpu_torch.apps import train as train_cli
+from scgaussian_tpu_torch import native
 from scgaussian_tpu_torch.config import OptimizationConfig, RasterizerConfig, TrainExtras
 from scgaussian_tpu_torch.core.cameras import Camera
+from scgaussian_tpu_torch.data.camera_utils import camera_list_from_infos
+from scgaussian_tpu_torch.data.readers import read_colmap_scene
+from scgaussian_tpu_torch.data.scene import build_bundle_from_scene
+from scgaussian_tpu_torch.data.synthetic import generate_scene
 from scgaussian_tpu_torch.losses import l1_loss, ssim
 from scgaussian_tpu_torch.model.densify import densify_and_prune, reset_opacity, update_stats
 from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, create_model, model_from_numpy
@@ -72,7 +86,10 @@ from scgaussian_tpu_torch.train import optim
 from scgaussian_tpu_torch.train.main_stage import (
     apply_update, make_camera_loss, render_model, train_step,
 )
+from scgaussian_tpu_torch.train import pipeline as pipeline_mod
 from scgaussian_tpu_torch.train.pipeline import run_main_stage, setup_from_matches
+from scgaussian_tpu_torch.utils import profiling
+from scgaussian_tpu_torch.utils.logging import TrainLogger
 
 REPS = 5  # timed repeats after one warm-up
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -124,6 +141,35 @@ MIN_PROMOTED = 0.9  # share of the (exact) matches the init stage must promote
 SEGSUM_REL_MAX = 1e-5  # kernel vs plain, per column: index_add_ sums in another order
 # sort route vs atomic route, per column group: atomics reorder the latter's sums
 ROUTE_REL_MAX = 1e-5
+# the command-line path: the LLFF few-shot protocol (BASELINE.md:24-30) on the
+# synthetic COLMAP scene, whose views are 1008x756 on disk and 504x378 at -r 2,
+# the size LLFF's -r 8 gives; the default schedule (2,000 init and 2,000 main
+# iterations, densify from 500 every 100, opacity reset every 200)
+CLI_VIEWS = 20  # test = every 8th (3 views), train = 3 of the other 17
+CLI_SIZE = (1008, 756)
+CLI_RESOLUTION = 2
+CLI_GAUSSIANS = 1_000  # ground truth
+CLI_POINTS = 2_030  # the sparse cloud: >= 2,000 matches for every ordered training pair
+CLI_RING = 1.2  # camera ring radius: a real baseline between the training views
+CLI_MIN_MATCHES = 2_000  # per ordered pair (BASELINE.md:29)
+CLI_INIT_ITERATIONS = 2_000
+CLI_ITERATIONS = 2_000
+CLI_TEST_ITERATIONS = (500, 1000, 1500, 2000)
+CLI_CHECKPOINT = 1_000
+CLI_RESUME_TO = 1_040  # resumed from CLI_CHECKPOINT
+CLI_PROFILE = (1_005, 25)  # profile the resumed run's iterations 1,006-1,030
+# The init stage's health: the JAX recipe's line is a final loss below 0.1.
+# On this scene the loss cannot fall that far: the generator (a copy of the
+# JAX package's, file for file) renders with a vertical field of view of
+# 0.9 rad but writes cameras.bin with fy = fx, so where two training views
+# differ in both x and y no depth fits a match in both axes. So the line is
+# held above the floor the scene's geometry leaves: the final loss must be
+# below that floor + 0.1, the floor being the loss with every match at its
+# best depth on a grid of CLI_FLOOR_SAMPLES depths (`init_loss_floor`); and
+# the stage must promote at least 90% of the matches.
+CLI_INIT_LOSS_MARGIN = 0.1
+CLI_FLOOR_SAMPLES = 2_048
+CLI_MIN_PROMOTED = 0.9
 DEVICE = "cuda"
 KERNELS = ("raster_fwd", "raster_bwd", "segsum")
 REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
@@ -1233,13 +1279,319 @@ def pipeline_phase(dev) -> dict:
                            library_ms=t_route_lib["median_ms"])}
 
 
-def rank_kernels(serving: dict, train_launches: dict, pipe: dict) -> None:
+class CliRecorder:
+    """Reads the train CLI's run through its seams, for the time of a
+    `with` block: how long the scene load (from `main`'s start to the init
+    stage), the init stage (`setup_from_matches`) and the main stage
+    (`run_main_stage`) take, the init stage's result, each iteration's
+    loss and host time (what `TrainLogger.step` is handed: `StepTimer`
+    synchronises the device before it reads the clock) and each
+    evaluation, and how long each of `StepTimer`'s device syncs waits (the
+    first sync after a step waits for the step's device work to end, where
+    the JAX CLI's `float(metrics.loss)` waits). With `profile_from`, it runs the profiler over the
+    `profile_iters` iterations after that one and keeps their device busy
+    time and host time."""
+
+    def __init__(self, profile_from: int | None = None, profile_iters: int = 0):
+        self.profile_from, self.profile_iters = profile_from, profile_iters
+        self.steps, self.evals, self.seconds, self.sync_waits = [], [], {}, []
+        self.init = self.promoted = None
+        self.window = {}
+
+    def __enter__(self):
+        self._saved = (pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage,
+                       TrainLogger.step, TrainLogger.eval, profiling._sync)
+        setup, run, step, evaluate, sync = self._saved
+        rec = self
+        self.t_main = time.perf_counter()
+
+        def timed_setup(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec.seconds["scene_load"] = t0 - rec.t_main
+            model, rec.init = setup(*args, **kwargs)
+            rec.promoted = model.num_ray
+            torch.cuda.synchronize()
+            rec.seconds["init_stage"] = time.perf_counter() - t0
+            return model, rec.init
+
+        def timed_run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec.seconds.setdefault("scene_load", t0 - rec.t_main)
+            state = run(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec.seconds["main_stage"] = time.perf_counter() - t0
+            return state
+
+        def recorded_step(logger, iteration, l1, total, iter_time):
+            rec.steps.append((iteration, total, iter_time))
+            if rec.profile_from is not None:
+                if iteration == rec.profile_from:
+                    rec.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    torch.cuda.synchronize()
+                    rec.prof.start()
+                    rec.window["t0"] = time.perf_counter()
+                elif iteration == rec.profile_from + rec.profile_iters:
+                    torch.cuda.synchronize()
+                    rec.window["host_s"] = time.perf_counter() - rec.window["t0"]
+                    rec.prof.stop()
+                    kernels = [e for e in rec.prof.key_averages()
+                               if e.device_type == DeviceType.CUDA]
+                    rec.window["busy_s"] = sum(e.self_device_time_total for e in kernels) / 1e6
+                    rec.window["kernels"] = sum(e.count for e in kernels)
+            return step(logger, iteration, l1, total, iter_time)
+
+        def timed_sync():
+            t0 = time.perf_counter()
+            sync()
+            rec.sync_waits.append(time.perf_counter() - t0)
+
+        def recorded_eval(logger, name, l1, psnr, iteration):
+            rec.evals.append((name, iteration, l1, psnr))
+            return evaluate(logger, name, l1, psnr, iteration)
+
+        pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage = timed_setup, timed_run
+        TrainLogger.step, TrainLogger.eval = recorded_step, recorded_eval
+        profiling._sync = timed_sync
+        return self
+
+    def __exit__(self, *exc):
+        (pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage,
+         TrainLogger.step, TrainLogger.eval, profiling._sync) = self._saved
+        return False
+
+
+def init_loss_floor(bundle, samples: int) -> float:
+    """The init stage's loss with every match at the best of `samples`
+    depths, even in inverse depth from half its pair's near to twice its
+    far: each match's reprojection error depends on its own depth alone,
+    so this is the lowest loss the scene's geometry allows, up to the
+    grid's spacing."""
+    lo, hi = 1.0 / (2.0 * bundle.near_far[:, 1:2]), 1.0 / (0.5 * bundle.near_far[:, 0:1])
+    best = torch.full_like(bundle.mask, float("inf"))
+    with torch.no_grad():
+        for k in range(samples):
+            z = (1.0 / (lo + (hi - lo) * ((k + 0.5) / samples))).expand_as(best)
+            best = torch.minimum(best, matchloss_from_base(z, bundle)[1])
+        valid = (bundle.mask * bundle.mask[bundle.partner]) > 0
+        per_pair = (torch.where(valid, best, 0.0).sum(1)
+                    / torch.clamp(valid.sum(1), min=1))
+        return float(TrainExtras().init_loss_scale * per_pair.sum())
+
+
+def ms_summary(seconds: list) -> dict:
+    ms = [s * 1e3 for s in seconds]
+    return {"median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
+            "n": len(ms)}
+
+
+def cli_phase(dev, card: str) -> dict:
+    """The command-line path, as a user runs it: the synthetic COLMAP scene
+    written to disk (`generate_scene`, ground truth rendered on the card),
+    the train CLI on it (`-r 2 --eval`, the default 2,000 + 2,000
+    iterations, evaluations at 500/1,000/1,500/2,000, a checkpoint at
+    1,000), a resumed run from that checkpoint, and the render CLI on the
+    trained model; then, outside the counted run, the render CLI's test
+    renders against `render_model` on the model `main` returned, and both
+    compositing kernels against their plain versions at test view 0
+    (504x378, ragged in both axes). Raises on any failed check; returns the
+    counted launches and the kernels' per-launch times at that view."""
+    W, H = CLI_SIZE[0] // CLI_RESOLUTION, CLI_SIZE[1] // CLI_RESOLUTION
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        scene_dir = os.path.join(tmp, "scene")
+        model_dir = os.path.join(tmp, "model")
+        resume_dir = os.path.join(tmp, "model_resume")
+
+        # the scene: 20 views, ground truth rendered by the forward kernel
+        before = raster.LAUNCHES["raster_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_scene(scene_dir, n_views=CLI_VIEWS, n_gaussians=CLI_GAUSSIANS,
+                       n_points=CLI_POINTS, width=CLI_SIZE[0], height=CLI_SIZE[1],
+                       ring_radius=CLI_RING, device=dev)
+        write_s = time.perf_counter() - t0
+        check(raster.LAUNCHES["raster_fwd"] - before == CLI_VIEWS,
+              f"scene writing: {raster.LAUNCHES['raster_fwd'] - before} forward launches")
+        info = read_colmap_scene(scene_dir, "images", True)
+        pair_matches = [len(info.match_data[a.image_name][b.image_name])
+                        for a in info.train_cameras for b in info.train_cameras if a is not b]
+        check(len(info.train_cameras) == 3 and len(info.test_cameras) == 3,
+              f"split: {len(info.train_cameras)} train, {len(info.test_cameras)} test")
+        check(min(pair_matches) >= CLI_MIN_MATCHES, f"matches per ordered pair {pair_matches}")
+        # the init stage's loss at z0, on the bundle the train CLI builds
+        # (cameras in the order `Scene` shuffles them to, z0 from --seed 0)
+        np.random.default_rng(0).shuffle(info.train_cameras)
+        bundle, _ = build_bundle_from_scene(info, dev)
+        z0 = init_zvals(bundle, torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            init_first = float(TrainExtras().init_loss_scale * matchloss_from_base(z0, bundle)[0])
+        init_floor = init_loss_floor(bundle, CLI_FLOOR_SAMPLES)
+        num_matches = int(bundle.pad_valid.sum())
+        del bundle, z0
+
+        # the counted run: train, resume, render
+        for name in KERNELS:
+            raster.LAUNCHES[name] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        train_args = ["-s", scene_dir, "-r", str(CLI_RESOLUTION), "--eval", "--no_tensorboard",
+                      "--device", DEVICE]
+        with CliRecorder() as rec:
+            state = train_cli.main(train_args + [
+                "-m", model_dir, "--init_iterations", str(CLI_INIT_ITERATIONS),
+                "--iterations", str(CLI_ITERATIONS),
+                "--test_iterations", *map(str, CLI_TEST_ITERATIONS),
+                "--checkpoint_iterations", str(CLI_CHECKPOINT)])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the train CLI's scene load takes the native points3D walker when it builds
+        reader = "native" if native.load_library("colmap_fast") is not None else "python"
+        with CliRecorder(*CLI_PROFILE) as resumed:
+            resumed_state = train_cli.main(train_args + [
+                "-m", resume_dir, "--iterations", str(CLI_RESUME_TO),
+                "--test_iterations", "-1", "--save_iterations", "-1",
+                "--start_checkpoint", os.path.join(model_dir, f"chkpnt{CLI_CHECKPOINT}.npz")])
+        render_s = render_cli.main(["-m", model_dir, "--device", DEVICE])
+        torch.cuda.synchronize()
+        launches = dict(raster.LAUNCHES)
+
+        # the train CLI's artifacts (tests/test_cli_end_to_end.py:46-57), its health
+        for rel in (f"point_cloud/iteration_{CLI_ITERATIONS}/point_cloud.ply", "cfg_args.json",
+                    f"chkpnt{CLI_CHECKPOINT}.npz", f"chkpnt{CLI_ITERATIONS}.npz",
+                    f"init_point_cloud/iteration_{CLI_INIT_ITERATIONS}/point_cloud_matchpoint.ply",
+                    "train_log.jsonl", "cameras.json"):
+            check(os.path.exists(os.path.join(model_dir, rel)), f"train CLI wrote no {rel}")
+        init_loss = float(rec.init.final_loss)
+        promoted = rec.promoted / num_matches
+        check(promoted >= CLI_MIN_PROMOTED, f"init stage promoted {promoted:.3f} of the matches")
+        check(math.isfinite(init_loss) and init_loss < init_floor + CLI_INIT_LOSS_MARGIN,
+              f"init stage final loss {init_loss} (must be finite and < the scene's floor "
+              f"{init_floor} + {CLI_INIT_LOSS_MARGIN})")
+        check(state.iteration == CLI_ITERATIONS, f"train CLI ended at {state.iteration}")
+        check([it for it, _, _ in rec.steps] == list(range(1, CLI_ITERATIONS + 1)),
+              "train CLI: iterations logged out of order")
+        with open(os.path.join(model_dir, "train_log.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        logged = [t for _, t, _ in rec.steps] + [r["loss"] for r in records]
+        check(all(math.isfinite(x) for x in logged), "train CLI: a logged loss is not finite")
+        test_psnr = [(it, p) for name, it, _, p in rec.evals if name == "test"]
+        check([it for it, _ in test_psnr] == list(CLI_TEST_ITERATIONS),
+              f"test evaluations at {[it for it, _ in test_psnr]}")
+        check(test_psnr[-1][1] > test_psnr[0][1], f"test PSNR did not rise: {test_psnr}")
+        # the resumed run
+        check(resumed_state.iteration == CLI_RESUME_TO,
+              f"resumed run ended at {resumed_state.iteration}")
+        check([it for it, _, _ in resumed.steps]
+              == list(range(CLI_CHECKPOINT + 1, CLI_RESUME_TO + 1)), "resumed iterations")
+        check(os.path.exists(os.path.join(resume_dir, f"chkpnt{CLI_RESUME_TO}.npz")),
+              "resumed run wrote no final checkpoint")
+        # the render CLI's artifacts
+        test_dir = os.path.join(model_dir, "test", f"ours_{CLI_ITERATIONS}")
+        renders = sorted(os.listdir(os.path.join(test_dir, "renders")))
+        check(len(renders) == 3, f"render CLI: {len(renders)} test renders")
+        for rel in ("depth/color_00000.png", "depth/00000.png", "error_map/00000.png",
+                    "gt/00000.png"):
+            check(os.path.exists(os.path.join(test_dir, rel)), f"render CLI wrote no {rel}")
+        check(os.path.exists(os.path.join(model_dir, "train", "point_cloud_color.ply")),
+              "render CLI wrote no point_cloud_color.ply")
+
+        # launches over the counted run: a forward and a backward per training
+        # iteration, a forward per evaluated view (3 test + 3 train views at each
+        # evaluation) and per rendered view; the atomic route, so no segment sum
+        iters = CLI_ITERATIONS + (CLI_RESUME_TO - CLI_CHECKPOINT)
+        rendered = len(CLI_TEST_ITERATIONS) * 6 + 6
+        want = {"raster_fwd": iters + rendered, "raster_bwd": iters, "segsum": 0}
+        check(launches == want, f"CLI launches {launches}, expected {want}")
+
+        # the render CLI's test renders == 8-bit render_model on main's model
+        test_cams = camera_list_from_infos(info.test_cameras, CLI_RESOLUTION, device=dev)
+        model = state.model
+        zero = torch.zeros(3, device=dev)
+        lsb = []
+        with torch.no_grad():
+            for idx, cam in enumerate(test_cams):
+                out = render_model(cam.camera, model, zero)
+                want_png = (torch.clamp(out.render, 0, 1).permute(1, 2, 0).cpu().numpy()
+                            * 255).astype(np.uint8)
+                got = np.asarray(Image.open(os.path.join(test_dir, "renders", f"{idx:05d}.png")))
+                check(got.shape == want_png.shape, f"render CLI view {idx}: {got.shape}")
+                lsb.append(int(np.abs(got.astype(np.int32) - want_png).max()))
+        check(max(lsb) <= 1, f"render CLI renders vs render_model: {lsb} LSB")
+
+        # both kernels at test view 0 with the trained model, against their
+        # plain versions, and their times there
+        before = dict(raster.LAUNCHES)
+        with torch.no_grad():
+            proj = project_model(test_cams[0].camera, model)
+            cmp = compare_kernel("cli_test_view0", proj, W, H,
+                                 img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
+            bwd = compare_backward("cli_test_view0", cmp, W, H)
+            bins, attrs, kbg, T, last = (cmp[k] for k in ("bins", "attrs", "bg", "T", "last"))
+            cots = bwd["cots"]
+            def fwd():
+                raster.raster_fwd(bins, attrs, kbg, W, H)
+
+            def bwd_atomic():
+                raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W, H)
+
+            # device time, or events when the profiler drops its sessions
+            fwd_ms = kernel_device_ms(fwd) or cuda_times(fwd)["median_ms"]
+            bwd_ms = kernel_device_ms(bwd_atomic) or cuda_times(bwd_atomic)["median_ms"]
+        raster.LAUNCHES.update(before)
+        fwd_bound = kernel_bound_ms(bins, attrs, W, H, cmp["pairs"])
+        bwd_bound = kernel_bound_ms_bwd(bins, attrs, W, H, bwd["counts"])
+
+    host = [dt for _, _, dt in rec.steps]
+    window = resumed.window
+    check(window.get("busy_s", 0.0) > 0, "the profiler saw no device time in the resumed run")
+    busy_ms = window["busy_s"] * 1e3 / CLI_PROFILE[1]
+    host_ms = window["host_s"] * 1e3 / CLI_PROFILE[1]
+    views = {k: len(v["render"]) for k, v in render_s.items()}
+    n_views = sum(views.values())
+    evals = {f"{name}@{it}": {"l1": l1, "psnr": p} for name, it, l1, p in rec.evals}
+    emit("cli", card=card, width=W, height=H, views_on_disk=list(CLI_SIZE),
+         train_views=3, test_views=3, matches_per_pair=pair_matches,
+         points3d_reader=reader, scene_write_s=write_s,
+         scene_load_s=rec.seconds["scene_load"], init_stage_s=rec.seconds["init_stage"],
+         init_loss_first=init_first, init_final_loss=init_loss, init_loss_floor=init_floor, matches=num_matches,
+         promoted=rec.promoted, promoted_share=promoted, main_stage_s=rec.seconds["main_stage"], iteration_host=ms_summary(host),
+         iteration_host_last_1000=ms_summary(host[-1000:]),
+         # StepTimer syncs twice an iteration: at its stop (after the step) and start
+         sync_wait_per_iteration=ms_summary([a + b for a, b in zip(rec.sync_waits[1::2],
+                                                                   rec.sync_waits[2::2])]),
+         slots=state.model.total, alive=state.model.num_ray + int(state.model.bg_alive.sum()),
+         ray_gaussians=state.model.num_ray, bg_capacity=state.model.bg_capacity,
+         peak_memory_gb=peak_gb, evaluations=evals, launches=launches)
+    emit("cli_device", card=card, iterations=CLI_PROFILE[1],
+         first_iteration=CLI_PROFILE[0] + 1, busy_ms_per_iteration=busy_ms,
+         host_ms_per_iteration_profiled=host_ms, idle_share=1.0 - busy_ms / host_ms,
+         kernels_per_iteration=window["kernels"] / CLI_PROFILE[1],
+         idle_share_vs_unprofiled_median=1.0 - busy_ms / ms_summary(host)["median_ms"],
+         resume_scene_load_s=resumed.seconds["scene_load"],
+         resume_main_stage_s=resumed.seconds["main_stage"])
+    emit("cli_render", card=card, views=views,
+         render_s_per_view={k: v["render"] for k, v in render_s.items()},
+         png_s_per_view=sum(v["png"] for v in render_s.values()) / n_views,
+         turbo_s_per_view=sum(v["turbo"] for v in render_s.values()) / n_views,
+         ply_s=sum(v["ply"] for v in render_s.values()), max_lsb_vs_render_model=lsb)
+    for kernel, ms, (bound, by), work in (("raster_fwd", fwd_ms, fwd_bound, cmp["stats"]),
+                                          ("raster_bwd", bwd_ms, bwd_bound, bwd["counts"])):
+        emit("kernel_time", kernel=kernel, scene="cli_test_view0", kernel_device_ms=ms,
+             bound_ms=bound, bound_by=by, entries=bins.num_entries, gaussians=proj.depth.shape[0],
+             **work)
+    return {"launches": launches,
+            "per_launch": {"raster_fwd": (fwd_ms, fwd_bound[0]),
+                           "raster_bwd": (bwd_ms, bwd_bound[0])}}
+
+
+def rank_kernels(serving: dict, train_launches: dict, pipe: dict, cli: dict) -> None:
     """The order in which the kernels lose the most time on the main paths:
     first any kernel slower than its library call (by that factor), then by
     the sum over the paths of launches x (kernel ms - bound ms), each path
     priced at its own shapes: the 1080p main view for serving and the 1080p
     steps, view 0 of the 4K pipeline (per-entry backward, the segment sum's
-    route form against `index_add_` by `gauss_ids`) for its 12."""
+    route form against `index_add_` by `gauss_ids`) for its 12, test view 0
+    of the command-line path (504x378) for its launches."""
     lost = {
         "raster_fwd": (serving["serving_launches"]["raster_fwd"] + train_launches["raster_fwd"])
         * (serving["raster_fwd"]["ms"] - serving["raster_fwd"]["bound_ms"]),
@@ -1251,6 +1603,8 @@ def rank_kernels(serving: dict, train_launches: dict, pipe: dict) -> None:
                              ("segsum", "segsum")):
         ms, bound = pipe["per_launch"][per_launch]
         lost[name] += pipe["launches"][name] * (ms - bound)
+    for name, (ms, bound) in cli["per_launch"].items():
+        lost[name] += cli["launches"][name] * (ms - bound)
     seg = pipe["segsum"]
     library_factor = {"segsum": seg["ms"] / seg["library_ms"]}
     def rank(k):
@@ -1311,14 +1665,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pipe = pipeline_phase(dev)
+
+    # 8. the command-line path: scene on disk -> train CLI -> resume -> render CLI
+    torch.cuda.empty_cache()
+    cli = cli_phase(dev, card)
     emit("card_state", nvidia_smi=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     rows = {name: dict(serving[name], library_ms=None) for name in ("raster_fwd", "raster_bwd")}
     rows["segsum"] = pipe["segsum"]
-    # launches over the three main paths: 5 views, 6 steps at 1080p, 12 at 4K
+    # launches over the four main paths: 5 views, 6 steps at 1080p, 12 at 4K,
+    # and the command-line run (2,040 iterations, 30 rendered views)
     launches = {name: serving["serving_launches"][name] + train_launches[name]
-                + pipe["launches"][name] for name in KERNELS}
-    rank_kernels(serving, train_launches, pipe)
+                + pipe["launches"][name] + cli["launches"][name] for name in KERNELS}
+    rank_kernels(serving, train_launches, pipe, cli)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

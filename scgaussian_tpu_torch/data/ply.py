@@ -102,3 +102,14 @@ def store_point_cloud(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
             "blue": np.clip(rgb[:, 2], 0, 255).astype(np.uint8),
         },
     )
+
+
+def fetch_point_cloud(path: str):
+    """fetchPly equivalent (`scene/dataset_readers.py:119-125`)."""
+    v = read_ply(path)
+    points = np.stack([v["x"], v["y"], v["z"]], axis=1)
+    colors = np.stack([v["red"], v["green"], v["blue"]], axis=1) / 255.0
+    normals = np.stack([v.get("nx", np.zeros(len(points))),
+                        v.get("ny", np.zeros(len(points))),
+                        v.get("nz", np.zeros(len(points)))], axis=1)
+    return points, colors, normals

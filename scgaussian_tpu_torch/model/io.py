@@ -1,25 +1,38 @@
-"""Model persistence: reference-compatible PLY snapshots.
+"""Model persistence: reference-compatible PLY snapshots + checkpoints.
 
-Port of `save_ply` / `load_ply` from `scgaussian_tpu/model/io.py:39-181`,
-in the same PLY layout, so a file written by either package loads in the
-other (and in the reference's tooling):
+Port of `scgaussian_tpu/model/io.py`, in the same PLY layout, so a file
+written by either package loads in the other (and in the reference's
+tooling):
 
 - foreground: x,y,z,nx,ny,nz,f_dc_*,f_rest_* (channel-major),opacity,
   scale_*,rot_*,zval_*,rayo_*,rayd_* (`scene/gaussian_model.py:531-549,
   565-586`)
 - background: b-prefixed names in point_cloud_bg.ply (`:551-563, 588-601`)
 - colored cloud point_cloud_color.ply (`:603-609`)
+- init-stage sparse depth maps + matchpoint cloud (`save_ply_at_matchpoint`,
+  `:611-642`)
+
+Checkpoints are one .npz of the (model, Adam state) leaves under the keys
+`leaf_0` ... `leaf_43`, in the order in which the JAX package flattens its
+`(GaussianModel, AdamState)` pytree (`CHECKPOINT_LEAVES`), with the same
+scalar keys beside them, so each package loads the other's files. The
+asynchronous checkpointer writes the same file from a background thread.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from scgaussian_tpu_torch.data import ply as ply_io
-from scgaussian_tpu_torch.model.gaussians import GaussianModel, model_from_numpy
+from scgaussian_tpu_torch.model.gaussians import (
+    BUFFER_NAMES, PARAM_NAMES, STAT_NAMES, GaussianModel, model_from_numpy,
+)
+from scgaussian_tpu_torch.train import optim
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -149,3 +162,152 @@ def load_ply(path: str, max_sh_degree: int, bg_capacity: int = 65536,
     leaves["bg_alive"] = bg_alive
     leaves["active_sh_degree"] = np.int32(max_sh_degree)
     return model_from_numpy(leaves, max_sh_degree, device, spatial_lr_scale)
+
+
+def save_matchpoints(bundle, zvals, view_names, out_dir: str) -> None:
+    """save_ply_at_matchpoint (`scene/gaussian_model.py:611-642`): matchpoint
+    colored cloud + per-view sparse depth .npy/.png. `zvals` [P, M] is the
+    init stage's best z (a tensor or an array)."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    zvals = _np(zvals) if isinstance(zvals, torch.Tensor) else np.asarray(zvals)
+    rays_o = _np(bundle.rays_o)
+    rays_d = _np(bundle.rays_d)
+    cam_rays_d = _np(bundle.cam_rays_d)
+    uv = _np(bundle.uv)
+    color = _np(bundle.color)
+    valid = _np(bundle.pad_valid)
+    src = _np(bundle.src)
+    H, W = bundle.height, bundle.width
+
+    xyz = (rays_o + rays_d * zvals[..., None]).reshape(-1, 3)[valid.reshape(-1)]
+    col = color.reshape(-1, 3)[valid.reshape(-1)]
+    ply_io.store_point_cloud(
+        os.path.join(out_dir, "point_cloud_matchpoint.ply"), xyz, col * 255
+    )
+
+    for v, name in enumerate(view_names):
+        sparse = np.zeros((H, W), np.float32)
+        pair_ids = np.nonzero(src == v)[0]
+        for pid in pair_ids:
+            m = valid[pid]
+            d = zvals[pid, m] * cam_rays_d[pid, m, 2]
+            px = np.clip(uv[pid, m, 0], 0, W - 1).astype(np.int64)
+            py = np.clip(uv[pid, m, 1], 0, H - 1).astype(np.int64)
+            sparse[py, px] = d
+        np.save(os.path.join(out_dir, f"{name}.npy"), sparse)
+        rng = sparse.max() - sparse.min()
+        norm = (sparse - sparse.min()) / (rng if rng > 0 else 1.0)
+        Image.fromarray((norm * 255).astype(np.uint8)).save(
+            os.path.join(out_dir, f"sparsedepth_{name}.png")
+        )
+
+
+# ---------------- checkpoints ----------------
+
+# The leaves of JAX's `tree_flatten((model, opt_state))`: the 12 parameters,
+# the 4 buffers and the 3 densify statistics of `GaussianModel` in field
+# order, then `AdamState`'s m and v (12 each, in the parameters' order) and
+# its step count.
+CHECKPOINT_LEAVES = (
+    PARAM_NAMES + BUFFER_NAMES + STAT_NAMES
+    + tuple(f"m.{n}" for n in PARAM_NAMES) + tuple(f"v.{n}" for n in PARAM_NAMES)
+    + ("count",)
+)
+
+
+def _checkpoint_payload(model: GaussianModel, opt_state: optim.AdamState, iteration: int,
+                        copy: bool = False) -> dict:
+    """The npz's arrays, moved to the CPU (copied when `copy`, so that the
+    arrays do not alias the tensors of a CPU model that training goes on
+    updating in place). Dtypes as in JAX: float32 leaves, bool `bg_alive`,
+    int32 `active_sh_degree` and `count`."""
+    def host(t):
+        return t.detach().to("cpu", copy=copy).numpy()
+
+    leaves = [host(getattr(model, n)) for n in PARAM_NAMES + BUFFER_NAMES + STAT_NAMES]
+    leaves += [host(opt_state.m[n]) for n in PARAM_NAMES]
+    leaves += [host(opt_state.v[n]) for n in PARAM_NAMES]
+    leaves.append(np.asarray(opt_state.count, np.int32))
+    return dict(
+        iteration=iteration,
+        num_leaves=len(leaves),
+        max_sh_degree=model.max_sh_degree,
+        spatial_lr_scale=model.spatial_lr_scale,
+        num_ray=model.num_ray,
+        bg_capacity=model.bg_capacity,
+        **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)},
+    )
+
+
+def save_checkpoint(path: str, model: GaussianModel, opt_state: optim.AdamState,
+                    iteration: int) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **_checkpoint_payload(model, opt_state, iteration))
+
+
+def load_checkpoint(
+    path: str, device: str | torch.device | None = None
+) -> Tuple[GaussianModel, optim.AdamState, int]:
+    """(model, Adam state, iteration) from a checkpoint of either package,
+    on `device` (default: the GPU)."""
+    data = np.load(path)
+    n = int(data["num_leaves"])
+    if n != len(CHECKPOINT_LEAVES):
+        raise ValueError(f"{path}: {n} leaves, expected {len(CHECKPOINT_LEAVES)}")
+    leaves = {name: data[f"leaf_{i}"] for i, name in enumerate(CHECKPOINT_LEAVES)}
+    model = model_from_numpy(
+        {name: leaves[name] for name in PARAM_NAMES + BUFFER_NAMES + STAT_NAMES},
+        int(data["max_sh_degree"]), device, float(data["spatial_lr_scale"]),
+    )
+    dev = model.zval.device
+    opt_state = optim.AdamState(
+        m={name: torch.tensor(leaves[f"m.{name}"], device=dev) for name in PARAM_NAMES},
+        v={name: torch.tensor(leaves[f"v.{name}"], device=dev) for name in PARAM_NAMES},
+        count=int(leaves["count"]),
+    )
+    return model, opt_state, int(data["iteration"])
+
+
+class AsyncCheckpointer:
+    """Checkpoints written by a background thread (the JAX package's uses
+    Orbax): `save` copies the state to the CPU and returns while the file
+    is written to `<directory>/checkpoint.npz` in `save_checkpoint`'s
+    format; `restore` waits for the write, then loads it."""
+
+    FILE = "checkpoint.npz"
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, directory: str, model: GaussianModel, opt_state: optim.AdamState,
+             iteration: int) -> None:
+        self.wait()
+        payload = _checkpoint_payload(model, opt_state, iteration, copy=True)
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, self.FILE)
+
+        def write():
+            try:
+                np.savez(path, **payload)
+            except BaseException as e:  # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def restore(self, directory: str, device: str | torch.device | None = None
+                ) -> Tuple[GaussianModel, optim.AdamState, int]:
+        self.wait()
+        return load_checkpoint(os.path.join(directory, self.FILE), device)
+
+    def wait(self) -> None:
+        """Block until the last save is on disk; raise its error if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
