@@ -7,7 +7,7 @@ Builds the CUDA kernels of `scgaussian_tpu_torch` from the sources in this
 checkout (one nvcc per source, started together) and reports each one's
 resident blocks per SM, holds each against its plain PyTorch version on the
 card (also on a scene built to press on the compositing kernels' cull),
-then drives the port's three paths:
+then drives the port's paths:
 
 - serving: model saved to PLY -> `load_ply` -> `render_model` for 5 views
   at 1920x1080, 100k Gaussians, SH degree 3, under `torch.no_grad()`;
@@ -27,7 +27,14 @@ then drives the port's three paths:
   LLFF at `-r 8`) under the LLFF few-shot protocol (3 training views, every
   8th view held out, >= 2,000 matches a pair, 2,000 init + 2,000 main
   iterations), a run resumed from its checkpoint at 1,000, and the render
-  CLI; then the kernels against their plain versions at that size.
+  CLI; then the kernels against their plain versions at that size;
+- evaluation and the remaining tools on that scene and model: the metrics
+  CLI (without LPIPS weights, then with seeded random VGG weights; SSIM
+  and LPIPS on the card against the CPU), the 180-frame LLFF spiral video,
+  the acceptance harness (`--skip_train` on the model, then `--synthetic`
+  end to end), the geo check on depths rendered at all 20 views, every
+  auxiliary loss on the CLI's renders (values and gradients against the
+  CPU), the viewer over a local socket, and the model's health.
 
 It times the kernels, the stages and whole renders and steps with CUDA
 events, the host clock and the profiler.
@@ -41,34 +48,48 @@ the script fails before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import cv2
 import numpy as np
 import torch
 from PIL import Image
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from scgaussian_tpu_torch.apps import acceptance
+from scgaussian_tpu_torch.apps import metrics as metrics_cli
 from scgaussian_tpu_torch.apps import render as render_cli
+from scgaussian_tpu_torch.apps import render_video as video_cli
 from scgaussian_tpu_torch.apps import train as train_cli
 from scgaussian_tpu_torch import native
 from scgaussian_tpu_torch.config import OptimizationConfig, RasterizerConfig, TrainExtras
 from scgaussian_tpu_torch.core.cameras import Camera
+from scgaussian_tpu_torch.data import readers
 from scgaussian_tpu_torch.data.camera_utils import camera_list_from_infos
+from scgaussian_tpu_torch.data.pose_utils import gen_poses
 from scgaussian_tpu_torch.data.readers import read_colmap_scene
-from scgaussian_tpu_torch.data.scene import build_bundle_from_scene
+from scgaussian_tpu_torch.data.scene import VideoScene, build_bundle_from_scene
 from scgaussian_tpu_torch.data.synthetic import generate_scene
-from scgaussian_tpu_torch.losses import l1_loss, ssim
+from scgaussian_tpu_torch.data.virtual_poses import get_near_virtual_pose
+from scgaussian_tpu_torch.eval import geo_check
+from scgaussian_tpu_torch.eval import lpips as lpips_mod
+from scgaussian_tpu_torch.eval import metrics as metrics_mod
+from scgaussian_tpu_torch.losses import aux, l1_loss, ssim
 from scgaussian_tpu_torch.model.densify import densify_and_prune, reset_opacity, update_stats
 from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, create_model, model_from_numpy
 from scgaussian_tpu_torch.model.io import load_ply, save_ply
@@ -88,8 +109,9 @@ from scgaussian_tpu_torch.train.main_stage import (
 )
 from scgaussian_tpu_torch.train import pipeline as pipeline_mod
 from scgaussian_tpu_torch.train.pipeline import run_main_stage, setup_from_matches
-from scgaussian_tpu_torch.utils import profiling
+from scgaussian_tpu_torch.utils import debug, profiling
 from scgaussian_tpu_torch.utils.logging import TrainLogger
+from scgaussian_tpu_torch.viewer import network_gui
 
 REPS = 5  # timed repeats after one warm-up
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -170,6 +192,20 @@ CLI_PROFILE = (1_005, 25)  # profile the resumed run's iterations 1,006-1,030
 CLI_INIT_LOSS_MARGIN = 0.1
 CLI_FLOOR_SAMPLES = 2_048
 CLI_MIN_PROMOTED = 0.9
+# the eval phase, on the command-line path's scene and model
+EVAL_LPIPS_SEED = 7
+EVAL_VIDEO_FRAMES = 180  # the LLFF spiral (data/readers.py:346-348)
+# metrics CLI (8-bit PNGs) vs the train CLI's own evaluation at 2,000 (floats)
+EVAL_PSNR_MAX_GAP = 0.1  # dB
+EVAL_SSIM_MAX = 1e-5  # card vs CPU, absolute
+EVAL_LPIPS_REL = 1e-4  # card vs CPU, of max(|cpu|, 1e-3) (tests/test_lpips.py:175)
+ACCEPT_MIN_PSNR = 10.0  # acceptance --synthetic, dB
+GEO_MASK_AGREE = 0.9999  # share of pixels whose geo_check mask is the same on card and CPU
+GEO_DEPTH_REL = 1e-5  # card vs CPU where both keep a pixel
+AUX_PATCH = 16  # 504x378 is not whole patches: patchify crops
+AUX_CONS_PATCH = 8
+AUX_VALUE_REL = 1e-5  # card vs CPU, of max(|cpu|, 1)
+AUX_GRAD_REL = 1e-4  # card vs CPU, of max|g| on the CPU
 DEVICE = "cuda"
 KERNELS = ("raster_fwd", "raster_bwd", "segsum")
 REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
@@ -1386,7 +1422,7 @@ def ms_summary(seconds: list) -> dict:
             "n": len(ms)}
 
 
-def cli_phase(dev, card: str) -> dict:
+def cli_phase(dev, card: str, tmp: str) -> dict:
     """The command-line path, as a user runs it: the synthetic COLMAP scene
     written to disk (`generate_scene`, ground truth rendered on the card),
     the train CLI on it (`-r 2 --eval`, the default 2,000 + 2,000
@@ -1395,151 +1431,153 @@ def cli_phase(dev, card: str) -> dict:
     trained model; then, outside the counted run, the render CLI's test
     renders against `render_model` on the model `main` returned, and both
     compositing kernels against their plain versions at test view 0
-    (504x378, ragged in both axes). Raises on any failed check; returns the
-    counted launches and the kernels' per-launch times at that view."""
+    (504x378, ragged in both axes). Writes into `tmp`. Raises on any failed
+    check; returns the counted launches, the kernels' per-launch times at
+    that view, and what the eval phase takes over: the scene and model
+    directories, the trained model, the train and test cameras (in the
+    order the train CLI shuffled them to) and the last test PSNR."""
     W, H = CLI_SIZE[0] // CLI_RESOLUTION, CLI_SIZE[1] // CLI_RESOLUTION
-    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
-        scene_dir = os.path.join(tmp, "scene")
-        model_dir = os.path.join(tmp, "model")
-        resume_dir = os.path.join(tmp, "model_resume")
+    scene_dir = os.path.join(tmp, "scene")
+    model_dir = os.path.join(tmp, "model")
+    resume_dir = os.path.join(tmp, "model_resume")
 
-        # the scene: 20 views, ground truth rendered by the forward kernel
-        before = raster.LAUNCHES["raster_fwd"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        generate_scene(scene_dir, n_views=CLI_VIEWS, n_gaussians=CLI_GAUSSIANS,
-                       n_points=CLI_POINTS, width=CLI_SIZE[0], height=CLI_SIZE[1],
-                       ring_radius=CLI_RING, device=dev)
-        write_s = time.perf_counter() - t0
-        check(raster.LAUNCHES["raster_fwd"] - before == CLI_VIEWS,
-              f"scene writing: {raster.LAUNCHES['raster_fwd'] - before} forward launches")
-        info = read_colmap_scene(scene_dir, "images", True)
-        pair_matches = [len(info.match_data[a.image_name][b.image_name])
-                        for a in info.train_cameras for b in info.train_cameras if a is not b]
-        check(len(info.train_cameras) == 3 and len(info.test_cameras) == 3,
-              f"split: {len(info.train_cameras)} train, {len(info.test_cameras)} test")
-        check(min(pair_matches) >= CLI_MIN_MATCHES, f"matches per ordered pair {pair_matches}")
-        # the init stage's loss at z0, on the bundle the train CLI builds
-        # (cameras in the order `Scene` shuffles them to, z0 from --seed 0)
-        np.random.default_rng(0).shuffle(info.train_cameras)
-        bundle, _ = build_bundle_from_scene(info, dev)
-        z0 = init_zvals(bundle, torch.Generator(device=dev).manual_seed(0))
-        with torch.no_grad():
-            init_first = float(TrainExtras().init_loss_scale * matchloss_from_base(z0, bundle)[0])
-        init_floor = init_loss_floor(bundle, CLI_FLOOR_SAMPLES)
-        num_matches = int(bundle.pad_valid.sum())
-        del bundle, z0
+    # the scene: 20 views, ground truth rendered by the forward kernel
+    before = raster.LAUNCHES["raster_fwd"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_scene(scene_dir, n_views=CLI_VIEWS, n_gaussians=CLI_GAUSSIANS,
+                   n_points=CLI_POINTS, width=CLI_SIZE[0], height=CLI_SIZE[1],
+                   ring_radius=CLI_RING, device=dev)
+    write_s = time.perf_counter() - t0
+    check(raster.LAUNCHES["raster_fwd"] - before == CLI_VIEWS,
+          f"scene writing: {raster.LAUNCHES['raster_fwd'] - before} forward launches")
+    info = read_colmap_scene(scene_dir, "images", True)
+    pair_matches = [len(info.match_data[a.image_name][b.image_name])
+                    for a in info.train_cameras for b in info.train_cameras if a is not b]
+    check(len(info.train_cameras) == 3 and len(info.test_cameras) == 3,
+          f"split: {len(info.train_cameras)} train, {len(info.test_cameras)} test")
+    check(min(pair_matches) >= CLI_MIN_MATCHES, f"matches per ordered pair {pair_matches}")
+    # the init stage's loss at z0, on the bundle the train CLI builds
+    # (cameras in the order `Scene` shuffles them to, z0 from --seed 0)
+    np.random.default_rng(0).shuffle(info.train_cameras)
+    bundle, _ = build_bundle_from_scene(info, dev)
+    z0 = init_zvals(bundle, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        init_first = float(TrainExtras().init_loss_scale * matchloss_from_base(z0, bundle)[0])
+    init_floor = init_loss_floor(bundle, CLI_FLOOR_SAMPLES)
+    num_matches = int(bundle.pad_valid.sum())
+    del bundle, z0
 
-        # the counted run: train, resume, render
-        for name in KERNELS:
-            raster.LAUNCHES[name] = 0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        train_args = ["-s", scene_dir, "-r", str(CLI_RESOLUTION), "--eval", "--no_tensorboard",
-                      "--device", DEVICE]
-        with CliRecorder() as rec:
-            state = train_cli.main(train_args + [
-                "-m", model_dir, "--init_iterations", str(CLI_INIT_ITERATIONS),
-                "--iterations", str(CLI_ITERATIONS),
-                "--test_iterations", *map(str, CLI_TEST_ITERATIONS),
-                "--checkpoint_iterations", str(CLI_CHECKPOINT)])
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        # the train CLI's scene load takes the native points3D walker when it builds
-        reader = "native" if native.load_library("colmap_fast") is not None else "python"
-        with CliRecorder(*CLI_PROFILE) as resumed:
-            resumed_state = train_cli.main(train_args + [
-                "-m", resume_dir, "--iterations", str(CLI_RESUME_TO),
-                "--test_iterations", "-1", "--save_iterations", "-1",
-                "--start_checkpoint", os.path.join(model_dir, f"chkpnt{CLI_CHECKPOINT}.npz")])
-        render_s = render_cli.main(["-m", model_dir, "--device", DEVICE])
-        torch.cuda.synchronize()
-        launches = dict(raster.LAUNCHES)
+    # the counted run: train, resume, render
+    for name in KERNELS:
+        raster.LAUNCHES[name] = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_args = ["-s", scene_dir, "-r", str(CLI_RESOLUTION), "--eval", "--no_tensorboard",
+                  "--device", DEVICE]
+    with CliRecorder() as rec:
+        state = train_cli.main(train_args + [
+            "-m", model_dir, "--init_iterations", str(CLI_INIT_ITERATIONS),
+            "--iterations", str(CLI_ITERATIONS),
+            "--test_iterations", *map(str, CLI_TEST_ITERATIONS),
+            "--checkpoint_iterations", str(CLI_CHECKPOINT)])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the train CLI's scene load takes the native points3D walker when it builds
+    reader = "native" if native.load_library("colmap_fast") is not None else "python"
+    with CliRecorder(*CLI_PROFILE) as resumed:
+        resumed_state = train_cli.main(train_args + [
+            "-m", resume_dir, "--iterations", str(CLI_RESUME_TO),
+            "--test_iterations", "-1", "--save_iterations", "-1",
+            "--start_checkpoint", os.path.join(model_dir, f"chkpnt{CLI_CHECKPOINT}.npz")])
+    render_s = render_cli.main(["-m", model_dir, "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = dict(raster.LAUNCHES)
 
-        # the train CLI's artifacts (tests/test_cli_end_to_end.py:46-57), its health
-        for rel in (f"point_cloud/iteration_{CLI_ITERATIONS}/point_cloud.ply", "cfg_args.json",
-                    f"chkpnt{CLI_CHECKPOINT}.npz", f"chkpnt{CLI_ITERATIONS}.npz",
-                    f"init_point_cloud/iteration_{CLI_INIT_ITERATIONS}/point_cloud_matchpoint.ply",
-                    "train_log.jsonl", "cameras.json"):
-            check(os.path.exists(os.path.join(model_dir, rel)), f"train CLI wrote no {rel}")
-        init_loss = float(rec.init.final_loss)
-        promoted = rec.promoted / num_matches
-        check(promoted >= CLI_MIN_PROMOTED, f"init stage promoted {promoted:.3f} of the matches")
-        check(math.isfinite(init_loss) and init_loss < init_floor + CLI_INIT_LOSS_MARGIN,
-              f"init stage final loss {init_loss} (must be finite and < the scene's floor "
-              f"{init_floor} + {CLI_INIT_LOSS_MARGIN})")
-        check(state.iteration == CLI_ITERATIONS, f"train CLI ended at {state.iteration}")
-        check([it for it, _, _ in rec.steps] == list(range(1, CLI_ITERATIONS + 1)),
-              "train CLI: iterations logged out of order")
-        with open(os.path.join(model_dir, "train_log.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        logged = [t for _, t, _ in rec.steps] + [r["loss"] for r in records]
-        check(all(math.isfinite(x) for x in logged), "train CLI: a logged loss is not finite")
-        test_psnr = [(it, p) for name, it, _, p in rec.evals if name == "test"]
-        check([it for it, _ in test_psnr] == list(CLI_TEST_ITERATIONS),
-              f"test evaluations at {[it for it, _ in test_psnr]}")
-        check(test_psnr[-1][1] > test_psnr[0][1], f"test PSNR did not rise: {test_psnr}")
-        # the resumed run
-        check(resumed_state.iteration == CLI_RESUME_TO,
-              f"resumed run ended at {resumed_state.iteration}")
-        check([it for it, _, _ in resumed.steps]
-              == list(range(CLI_CHECKPOINT + 1, CLI_RESUME_TO + 1)), "resumed iterations")
-        check(os.path.exists(os.path.join(resume_dir, f"chkpnt{CLI_RESUME_TO}.npz")),
-              "resumed run wrote no final checkpoint")
-        # the render CLI's artifacts
-        test_dir = os.path.join(model_dir, "test", f"ours_{CLI_ITERATIONS}")
-        renders = sorted(os.listdir(os.path.join(test_dir, "renders")))
-        check(len(renders) == 3, f"render CLI: {len(renders)} test renders")
-        for rel in ("depth/color_00000.png", "depth/00000.png", "error_map/00000.png",
-                    "gt/00000.png"):
-            check(os.path.exists(os.path.join(test_dir, rel)), f"render CLI wrote no {rel}")
-        check(os.path.exists(os.path.join(model_dir, "train", "point_cloud_color.ply")),
-              "render CLI wrote no point_cloud_color.ply")
+    # the train CLI's artifacts (tests/test_cli_end_to_end.py:46-57), its health
+    for rel in (f"point_cloud/iteration_{CLI_ITERATIONS}/point_cloud.ply", "cfg_args.json",
+                f"chkpnt{CLI_CHECKPOINT}.npz", f"chkpnt{CLI_ITERATIONS}.npz",
+                f"init_point_cloud/iteration_{CLI_INIT_ITERATIONS}/point_cloud_matchpoint.ply",
+                "train_log.jsonl", "cameras.json"):
+        check(os.path.exists(os.path.join(model_dir, rel)), f"train CLI wrote no {rel}")
+    init_loss = float(rec.init.final_loss)
+    promoted = rec.promoted / num_matches
+    check(promoted >= CLI_MIN_PROMOTED, f"init stage promoted {promoted:.3f} of the matches")
+    check(math.isfinite(init_loss) and init_loss < init_floor + CLI_INIT_LOSS_MARGIN,
+          f"init stage final loss {init_loss} (must be finite and < the scene's floor "
+          f"{init_floor} + {CLI_INIT_LOSS_MARGIN})")
+    check(state.iteration == CLI_ITERATIONS, f"train CLI ended at {state.iteration}")
+    check([it for it, _, _ in rec.steps] == list(range(1, CLI_ITERATIONS + 1)),
+          "train CLI: iterations logged out of order")
+    with open(os.path.join(model_dir, "train_log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    logged = [t for _, t, _ in rec.steps] + [r["loss"] for r in records]
+    check(all(math.isfinite(x) for x in logged), "train CLI: a logged loss is not finite")
+    test_psnr = [(it, p) for name, it, _, p in rec.evals if name == "test"]
+    check([it for it, _ in test_psnr] == list(CLI_TEST_ITERATIONS),
+          f"test evaluations at {[it for it, _ in test_psnr]}")
+    check(test_psnr[-1][1] > test_psnr[0][1], f"test PSNR did not rise: {test_psnr}")
+    # the resumed run
+    check(resumed_state.iteration == CLI_RESUME_TO,
+          f"resumed run ended at {resumed_state.iteration}")
+    check([it for it, _, _ in resumed.steps]
+          == list(range(CLI_CHECKPOINT + 1, CLI_RESUME_TO + 1)), "resumed iterations")
+    check(os.path.exists(os.path.join(resume_dir, f"chkpnt{CLI_RESUME_TO}.npz")),
+          "resumed run wrote no final checkpoint")
+    # the render CLI's artifacts
+    test_dir = os.path.join(model_dir, "test", f"ours_{CLI_ITERATIONS}")
+    renders = sorted(os.listdir(os.path.join(test_dir, "renders")))
+    check(len(renders) == 3, f"render CLI: {len(renders)} test renders")
+    for rel in ("depth/color_00000.png", "depth/00000.png", "error_map/00000.png",
+                "gt/00000.png"):
+        check(os.path.exists(os.path.join(test_dir, rel)), f"render CLI wrote no {rel}")
+    check(os.path.exists(os.path.join(model_dir, "train", "point_cloud_color.ply")),
+          "render CLI wrote no point_cloud_color.ply")
 
-        # launches over the counted run: a forward and a backward per training
-        # iteration, a forward per evaluated view (3 test + 3 train views at each
-        # evaluation) and per rendered view; the atomic route, so no segment sum
-        iters = CLI_ITERATIONS + (CLI_RESUME_TO - CLI_CHECKPOINT)
-        rendered = len(CLI_TEST_ITERATIONS) * 6 + 6
-        want = {"raster_fwd": iters + rendered, "raster_bwd": iters, "segsum": 0}
-        check(launches == want, f"CLI launches {launches}, expected {want}")
+    # launches over the counted run: a forward and a backward per training
+    # iteration, a forward per evaluated view (3 test + 3 train views at each
+    # evaluation) and per rendered view; the atomic route, so no segment sum
+    iters = CLI_ITERATIONS + (CLI_RESUME_TO - CLI_CHECKPOINT)
+    rendered = len(CLI_TEST_ITERATIONS) * 6 + 6
+    want = {"raster_fwd": iters + rendered, "raster_bwd": iters, "segsum": 0}
+    check(launches == want, f"CLI launches {launches}, expected {want}")
 
-        # the render CLI's test renders == 8-bit render_model on main's model
-        test_cams = camera_list_from_infos(info.test_cameras, CLI_RESOLUTION, device=dev)
-        model = state.model
-        zero = torch.zeros(3, device=dev)
-        lsb = []
-        with torch.no_grad():
-            for idx, cam in enumerate(test_cams):
-                out = render_model(cam.camera, model, zero)
-                want_png = (torch.clamp(out.render, 0, 1).permute(1, 2, 0).cpu().numpy()
-                            * 255).astype(np.uint8)
-                got = np.asarray(Image.open(os.path.join(test_dir, "renders", f"{idx:05d}.png")))
-                check(got.shape == want_png.shape, f"render CLI view {idx}: {got.shape}")
-                lsb.append(int(np.abs(got.astype(np.int32) - want_png).max()))
-        check(max(lsb) <= 1, f"render CLI renders vs render_model: {lsb} LSB")
+    # the render CLI's test renders == 8-bit render_model on main's model
+    test_cams = camera_list_from_infos(info.test_cameras, CLI_RESOLUTION, device=dev)
+    model = state.model
+    zero = torch.zeros(3, device=dev)
+    lsb = []
+    with torch.no_grad():
+        for idx, cam in enumerate(test_cams):
+            out = render_model(cam.camera, model, zero)
+            want_png = (torch.clamp(out.render, 0, 1).permute(1, 2, 0).cpu().numpy()
+                        * 255).astype(np.uint8)
+            got = np.asarray(Image.open(os.path.join(test_dir, "renders", f"{idx:05d}.png")))
+            check(got.shape == want_png.shape, f"render CLI view {idx}: {got.shape}")
+            lsb.append(int(np.abs(got.astype(np.int32) - want_png).max()))
+    check(max(lsb) <= 1, f"render CLI renders vs render_model: {lsb} LSB")
 
-        # both kernels at test view 0 with the trained model, against their
-        # plain versions, and their times there
-        before = dict(raster.LAUNCHES)
-        with torch.no_grad():
-            proj = project_model(test_cams[0].camera, model)
-            cmp = compare_kernel("cli_test_view0", proj, W, H,
-                                 img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
-            bwd = compare_backward("cli_test_view0", cmp, W, H)
-            bins, attrs, kbg, T, last = (cmp[k] for k in ("bins", "attrs", "bg", "T", "last"))
-            cots = bwd["cots"]
-            def fwd():
-                raster.raster_fwd(bins, attrs, kbg, W, H)
+    # both kernels at test view 0 with the trained model, against their
+    # plain versions, and their times there
+    before = dict(raster.LAUNCHES)
+    with torch.no_grad():
+        proj = project_model(test_cams[0].camera, model)
+        cmp = compare_kernel("cli_test_view0", proj, W, H,
+                             img_max=1e-2, depth_max=1e-1, img_mean=1e-6)
+        bwd = compare_backward("cli_test_view0", cmp, W, H)
+        bins, attrs, kbg, T, last = (cmp[k] for k in ("bins", "attrs", "bg", "T", "last"))
+        cots = bwd["cots"]
+        def fwd():
+            raster.raster_fwd(bins, attrs, kbg, W, H)
 
-            def bwd_atomic():
-                raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W, H)
+        def bwd_atomic():
+            raster.raster_bwd(bins, attrs, kbg, T, last, *cots, W, H)
 
-            # device time, or events when the profiler drops its sessions
-            fwd_ms = kernel_device_ms(fwd) or cuda_times(fwd)["median_ms"]
-            bwd_ms = kernel_device_ms(bwd_atomic) or cuda_times(bwd_atomic)["median_ms"]
-        raster.LAUNCHES.update(before)
-        fwd_bound = kernel_bound_ms(bins, attrs, W, H, cmp["pairs"])
-        bwd_bound = kernel_bound_ms_bwd(bins, attrs, W, H, bwd["counts"])
+        # device time, or events when the profiler drops its sessions
+        fwd_ms = kernel_device_ms(fwd) or cuda_times(fwd)["median_ms"]
+        bwd_ms = kernel_device_ms(bwd_atomic) or cuda_times(bwd_atomic)["median_ms"]
+    raster.LAUNCHES.update(before)
+    fwd_bound = kernel_bound_ms(bins, attrs, W, H, cmp["pairs"])
+    bwd_bound = kernel_bound_ms_bwd(bins, attrs, W, H, bwd["counts"])
 
     host = [dt for _, _, dt in rec.steps]
     window = resumed.window
@@ -1581,17 +1619,441 @@ def cli_phase(dev, card: str) -> dict:
              **work)
     return {"launches": launches,
             "per_launch": {"raster_fwd": (fwd_ms, fwd_bound[0]),
-                           "raster_bwd": (bwd_ms, bwd_bound[0])}}
+                           "raster_bwd": (bwd_ms, bwd_bound[0])},
+            # for the eval phase, which works on this phase's scene and model
+            "scene_dir": scene_dir, "model_dir": model_dir, "model": model,
+            "train_cams": camera_list_from_infos(info.train_cameras, CLI_RESOLUTION, device=dev),
+            "test_cams": test_cams, "test_psnr": test_psnr[-1][1]}
 
 
-def rank_kernels(serving: dict, train_launches: dict, pipe: dict, cli: dict) -> None:
+def lpips_vgg_weights(path: str, seed: int) -> None:
+    """Random LPIPS-VGG weights in the `.npz` layout `eval/lpips.py` reads
+    (the repo ships no VGG weights), He-scaled so every tap stays well
+    conditioned, with lin heads as the JAX suite draws them."""
+    rng = np.random.default_rng(seed)
+    params, cin, ci = {}, 3, 0
+    for cout in (c for c in lpips_mod._VGG_CFG if c != "M"):
+        params[f"conv{ci}_w"] = rng.normal(size=(cout, cin, 3, 3),
+                                           scale=math.sqrt(2.0 / (cin * 9))).astype(np.float32)
+        params[f"conv{ci}_b"] = rng.normal(size=(cout,), scale=0.05).astype(np.float32)
+        cin, ci = cout, ci + 1
+    for i, c in enumerate((64, 128, 256, 512, 512)):
+        params[f"lin{i}_w"] = np.abs(rng.normal(size=(1, c, 1, 1), scale=0.05)).astype(np.float32)
+    np.savez(path, **params)
+
+
+class Launches:
+    """Reads the kernels' launch counts step by step: `step(name, want)`
+    checks the launches since the last step against `want` (a dict of the
+    kernels that launched; the others must not have), and `aside()` is a
+    block whose launches (comparisons) are taken back out."""
+
+    def __init__(self):
+        for name in KERNELS:
+            raster.LAUNCHES[name] = 0
+        self.mark = dict(raster.LAUNCHES)
+
+    def step(self, label: str, want: dict) -> None:
+        torch.cuda.synchronize()
+        got = {k: raster.LAUNCHES[k] - self.mark[k] for k in KERNELS}
+        full = {k: want.get(k, 0) for k in KERNELS}
+        check(got == full, f"eval {label}: launches {got}, expected {full}")
+        self.mark = dict(raster.LAUNCHES)
+
+    @contextlib.contextmanager
+    def aside(self):
+        saved = dict(raster.LAUNCHES)
+        yield
+        raster.LAUNCHES.update(saved)
+
+    def total(self) -> dict:
+        return dict(raster.LAUNCHES)
+
+
+def u8_image(render: torch.Tensor) -> np.ndarray:
+    """[3, H, W] -> H x W x 3 uint8, as `apps/render.py::save_image` and the
+    viewer (`render_for_viewer`) quantise a render."""
+    return (torch.clamp(render, 0, 1).permute(1, 2, 0).cpu().numpy() * 255).astype(np.uint8)
+
+
+def read_results(model_dir: str) -> tuple:
+    out = []
+    for name in ("results.json", "per_view.json"):
+        with open(os.path.join(model_dir, name)) as f:
+            out.append(json.load(f))
+    return tuple(out)
+
+
+def check_results_schema(results: dict, per_view: dict, views: int, lpips: bool) -> None:
+    method = f"ours_{CLI_ITERATIONS}"
+    check(list(results) == [method] and list(per_view) == [method],
+          f"metrics: methods {list(results)}, {list(per_view)}")
+    keys = {"SSIM", "PSNR", "LPIPS", "AVG"} | (set() if lpips else {"AVG_definition"})
+    check(set(results[method]) == keys, f"results.json keys {sorted(results[method])}")
+    check(set(per_view[method]) == set(metrics_mod.METRICS)
+          and all(len(v) == views for v in per_view[method].values()),
+          f"per_view.json: {[(k, len(v)) for k, v in per_view[method].items()]}")
+    values = [results[method][k] for k in ("SSIM", "PSNR", "AVG")]
+    values += [v for k, d in per_view[method].items() for v in d.values()
+               if k != "LPIPS" or lpips]
+    check(all(isinstance(v, float) and math.isfinite(v) for v in values),
+          "metrics: a value is missing or not finite")
+    if lpips:
+        check(results[method]["AVG"] == results[method]["LPIPS"],
+              "results.json AVG must hold the LPIPS mean (the reference quirk)")
+    else:
+        check(results[method]["LPIPS"] is None
+              and all(v is None for v in per_view[method]["LPIPS"].values()),
+              "metrics without weights must report LPIPS as null")
+
+
+def viewer_request(cam, fovx: float, fovy: float) -> dict:
+    """The SIBR request for `cam`: matrices transposed (row-vector) with
+    the y/z flips the viewer applies (`NetworkGUI.receive` undoes them)."""
+    view_t = cam.world_view.cpu().numpy().T.copy()
+    proj_t = cam.full_proj.cpu().numpy().T.copy()
+    view_t[:, 1:3] *= -1
+    proj_t[:, 1] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": True,
+            "fov_y": fovy, "fov_x": fovx, "z_near": float(cam.znear), "z_far": float(cam.zfar),
+            "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+            "scaling_modifier": 1.0, "view_matrix": [float(v) for v in view_t.flatten()],
+            "view_projection_matrix": [float(v) for v in proj_t.flatten()]}
+
+
+def recv_exact(sock, n: int) -> bytes:
+    """`n` bytes from `sock` (a socket with a timeout returns what has
+    arrived, MSG_WAITALL or not)."""
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        check(len(chunk) > 0, f"the viewer connection closed after {len(buf)} of {n} bytes")
+        buf += chunk
+    return bytes(buf)
+
+
+def viewer_client(port: int, request: dict, n_bytes: int, out: dict) -> None:
+    """A viewer: connects, sends `request`, reads the reply into `out`."""
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        payload = json.dumps(request).encode()
+        sock.sendall(len(payload).to_bytes(4, "little") + payload)
+        out["image"] = recv_exact(sock, n_bytes)
+        n = int.from_bytes(recv_exact(sock, 4), "little")
+        out["verify"] = recv_exact(sock, n).decode()
+
+
+def aux_losses_on(dev, inputs: dict, sample_idx: torch.Tensor, dtype=torch.float32) -> dict:
+    """{name: (value, {input: gradient})} of every `losses/aux.py` function
+    on `inputs` (copied to `dev` in `dtype` as leaves that require grad)."""
+    x = {k: v.detach().to(dev, dtype).requires_grad_() for k, v in inputs.items()}
+    fore = (x["alpha0"] < 0.5).to(dtype)
+    calls = {
+        "get_smooth_loss": (lambda: aux.get_smooth_loss(x["depth0"][0, 0], x["img0"]),
+                            ("depth0", "img0")),
+        "patchify": (lambda: aux.patchify(x["depth0"], AUX_PATCH).square().mean(), ("depth0",)),
+        "margin_l2_loss": (lambda: aux.margin_l2_loss(
+            aux.patchify(x["depth0"], AUX_PATCH), aux.patchify(x["depth1"], AUX_PATCH),
+            aux.patchify(fore, AUX_PATCH).sum(1) < AUX_PATCH ** 2 / 3, 0.05),
+            ("depth0", "depth1")),
+        "patch_norm_mse_loss": (lambda: aux.patch_norm_mse_loss(
+            x["depth0"], x["depth1"], fore, AUX_PATCH), ("depth0", "depth1")),
+        "ranking_loss": (lambda: aux.ranking_loss(
+            x["depth0"], x["depth1"], AUX_PATCH, sample_idx=sample_idx.to(dev)), ("depth0",)),
+        "cons_loss": (lambda: aux.cons_loss(x["depth0"], x["depth1"], AUX_CONS_PATCH, 1e-3),
+                      ("depth0",)),
+        "get_virtual_warp_loss": (lambda: aux.get_virtual_warp_loss(
+            x["img_v"], x["depth_v"], x["c2w_v"], x["intrs"], x["w2cs"], x["colors"],
+            x["alpha_v"][0] > 0.5), ("img_v", "depth_v", "colors")),
+    }
+    out = {}
+    for name, (fn, wrt) in calls.items():
+        value = fn()
+        grads = torch.autograd.grad(value, [x[k] for k in wrt])
+        out[name] = (float(value.detach()), {k: g.cpu() for k, g in zip(wrt, grads)})
+    return out
+
+
+def eval_phase(dev, card: str, tmp: str, cli: dict) -> dict:
+    """Evaluation and the remaining tools on the command-line path's scene
+    and trained model (`cli_phase`), as a user runs them, each step
+    checked: the metrics CLI (without and with LPIPS-VGG from seeded random
+    weights; SSIM and LPIPS of each view on the card against the CPU), the
+    LLFF spiral video (180 frames), the acceptance harness (`--skip_train`
+    on the model, then `--synthetic` end to end), the geo check on depths
+    rendered at all 20 views (card against CPU), every auxiliary loss on
+    the CLI's renders (values and gradients, card against CPU), the viewer
+    over a socket, and the model's health. Launches are counted per step;
+    renders that only compare are taken back out. Raises on any failed
+    check; returns the counted launches."""
+    scene_dir, model_dir, model = cli["scene_dir"], cli["model_dir"], cli["model"]
+    test_cams, train_cams = cli["test_cams"], cli["train_cams"]
+    method = f"ours_{CLI_ITERATIONS}"
+    W, H = test_cams[0].width, test_cams[0].height
+    zero = torch.zeros(3, device=dev)
+    counts = Launches()
+
+    # 1. the metrics CLI on test/ours_2000: without LPIPS weights, then with
+    # seeded random VGG weights
+    os.environ.pop(lpips_mod._ENV_VAR, None)
+    t0 = time.perf_counter()
+    metrics_cli.main(["-m", model_dir, "--no_lpips", "--device", DEVICE])
+    metrics_s = time.perf_counter() - t0
+    no_lpips = read_results(model_dir)
+    check_results_schema(*no_lpips, views=len(test_cams), lpips=False)
+    psnr = no_lpips[0][method]["PSNR"]
+    check(abs(psnr - cli["test_psnr"]) <= EVAL_PSNR_MAX_GAP,
+          f"metrics CLI PSNR {psnr} vs the train CLI's {cli['test_psnr']} at {CLI_ITERATIONS}")
+    weights = os.path.join(tmp, "lpips_vgg.npz")
+    lpips_vgg_weights(weights, EVAL_LPIPS_SEED)
+    os.environ[lpips_mod._ENV_VAR] = weights
+    t0 = time.perf_counter()
+    metrics_cli.main(["-m", model_dir, "--device", DEVICE])
+    metrics_lpips_s = time.perf_counter() - t0
+    with_lpips = read_results(model_dir)
+    check_results_schema(*with_lpips, views=len(test_cams), lpips=True)
+    counts.step("metrics", {})
+    # each view's SSIM and LPIPS on the card against the CPU, and their times
+    test_dir = os.path.join(model_dir, "test", method)
+    t0 = time.perf_counter()
+    renders, gts, names, _ = metrics_mod.read_images(
+        *(Path(test_dir) / k for k in ("renders", "gt", "dtumask")))
+    decode_s = (time.perf_counter() - t0) / len(names)
+    nets = {"card": lpips_mod.LPIPS("vgg", device=dev), "cpu": lpips_mod.LPIPS("vgg", device="cpu")}
+    ssim_err, lpips_err, ssim_s, lpips_s = [], [], [], []
+    for name, r, g in zip(names, renders, gts):
+        pair = {d: (torch.tensor(r, device=d), torch.tensor(g, device=d)) for d in (dev, "cpu")}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            card_ssim = float(ssim(*pair[dev]))
+            ssim_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            card_lpips = float(nets["card"](pair[dev][0][None], pair[dev][1][None])[0])
+            lpips_s.append(time.perf_counter() - t0)
+            cpu_ssim = float(ssim(*pair["cpu"]))
+            cpu_lpips = float(nets["cpu"](pair["cpu"][0][None], pair["cpu"][1][None])[0])
+        cli_view = (with_lpips[1][method]["SSIM"][name], with_lpips[1][method]["LPIPS"][name])
+        check(all(abs(a - b) <= 1e-6 * max(1.0, abs(b))
+                  for a, b in zip(cli_view, (card_ssim, card_lpips))),
+              f"metrics CLI view {name} {cli_view} vs the same calls on the card "
+              f"{(card_ssim, card_lpips)}")
+        ssim_err.append(abs(card_ssim - cpu_ssim))
+        lpips_err.append(abs(card_lpips - cpu_lpips) / max(abs(cpu_lpips), 1e-3))
+    check(max(ssim_err) <= EVAL_SSIM_MAX, f"SSIM card vs CPU {ssim_err}")
+    check(max(lpips_err) <= EVAL_LPIPS_REL, f"LPIPS card vs CPU (relative) {lpips_err}")
+    x0, y0 = (torch.tensor(a, device=dev)[None] for a in (renders[0], gts[0]))
+    with torch.no_grad():
+        lpips_pair = cuda_times(lambda: nets["card"](x0, y0))
+    del nets
+    emit("eval_metrics", card=card, width=W, height=H, views=len(names),
+         psnr=psnr, train_cli_psnr=cli["test_psnr"], ssim=no_lpips[0][method]["SSIM"],
+         lpips_random_vgg=with_lpips[0][method]["LPIPS"],
+         cli_s_per_view=metrics_s / len(names), cli_lpips_s_per_view=metrics_lpips_s / len(names),
+         png_decode_s_per_view=decode_s, ssim_s_per_view=ssim_s, lpips_s_per_view=lpips_s,
+         lpips_vgg_ms_per_pair=lpips_pair, ssim_max_abs_err=max(ssim_err),
+         lpips_max_rel_err=max(lpips_err))
+
+    # 2. the fly-through video: the LLFF spiral from poses_bounds.npy
+    gen_poses(scene_dir)
+    t0 = time.perf_counter()
+    video_s = video_cli.main(["-m", model_dir, "--device", DEVICE])
+    video_total_s = time.perf_counter() - t0
+    counts.step("video", {"raster_fwd": EVAL_VIDEO_FRAMES})
+    base = os.path.join(model_dir, "video", method)
+    for kind in ("rgb", "depth"):
+        cap = cv2.VideoCapture(os.path.join(base, f"video_{kind}.avi"))
+        check(cap.isOpened(), f"cannot read video_{kind}.avi back")
+        frames = 0
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            check(frame.shape == (H, W, 3), f"video_{kind}.avi frame {frame.shape}")
+            frames += 1
+        cap.release()
+        check(frames == EVAL_VIDEO_FRAMES, f"video_{kind}.avi holds {frames} frames")
+    with counts.aside(), torch.no_grad():
+        video = VideoScene(scene_dir, model_dir, resolution=CLI_RESOLUTION, device=dev)
+        check(len(video.test_cameras) == EVAL_VIDEO_FRAMES,
+              f"{len(video.test_cameras)} spiral cameras")
+        ply = load_ply(os.path.join(model_dir, "point_cloud", f"iteration_{CLI_ITERATIONS}",
+                                    "point_cloud.ply"), max_sh_degree=3, device=dev)
+        want = u8_image(render_model(video.test_cameras[0].camera, ply, zero).render)
+        del ply
+    got = np.asarray(Image.open(os.path.join(base, "frames", "00000.png")))
+    frame_lsb = int(np.abs(got.astype(np.int32) - want).max())
+    check(got.shape == want.shape and frame_lsb == 0,
+          f"video frame 0 vs render_model: {frame_lsb} LSB")
+    emit("eval_video", card=card, frames=EVAL_VIDEO_FRAMES, width=W, height=H,
+         total_s=video_total_s, render_ms_per_frame=ms_summary(video_s["render"]),
+         write_ms_per_frame=ms_summary(video_s["write"]), frame0_lsb=frame_lsb)
+
+    # 3. the acceptance harness: on the trained model, then end to end on
+    # its synthetic scene
+    t0 = time.perf_counter()
+    skip = acceptance.main(["-s", scene_dir, "-m", model_dir, "--skip_train", "--no_lpips",
+                            "--iterations", str(CLI_ITERATIONS), "--device", DEVICE])
+    skip_s = time.perf_counter() - t0
+    check(skip == no_lpips[0], f"acceptance --skip_train {skip} vs the metrics CLI {no_lpips[0]}")
+    counts.step("acceptance --skip_train", {"raster_fwd": 2 * len(test_cams)})
+    t0 = time.perf_counter()
+    synthetic = acceptance.main(["--synthetic", "--device", DEVICE])
+    synthetic_s = time.perf_counter() - t0
+    (syn_method, syn), = synthetic.items()
+    check(math.isfinite(syn["PSNR"]) and syn["PSNR"] > ACCEPT_MIN_PSNR,
+          f"acceptance --synthetic PSNR {syn['PSNR']}")
+    # 10 views written, 60 iterations, an evaluation (2 test + 3 train views), 5 renders
+    counts.step("acceptance --synthetic", {"raster_fwd": 10 + 60 + 5 + 5, "raster_bwd": 60})
+    emit("eval_acceptance", card=card, skip_train_s=skip_s, synthetic_s=synthetic_s,
+         synthetic=syn, synthetic_method=syn_method)
+
+    # 4. the geo check on the model's depths at all 20 views
+    infos = sorted(readers._read_colmap_cameras(*readers._read_colmap_model(scene_dir),
+                                                os.path.join(scene_dir, "images")),
+                   key=lambda c: c.image_name)
+    check(len(infos) == CLI_VIEWS, f"geo_check: {len(infos)} views")
+    views = camera_list_from_infos(infos, CLI_RESOLUTION, device=dev)
+    with torch.no_grad():
+        depths = np.stack([render_model(v.camera, model, zero).rendered_depth[0].cpu().numpy()
+                           for v in views])
+    counts.step("geo_check depths", {"raster_fwd": len(views)})
+    intrs = np.stack([v.camera.K.cpu().numpy() for v in views])
+    extrs = np.stack([v.camera.world_view.cpu().numpy() for v in views])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_d, card_m = geo_check.geocheck(intrs, extrs, depths, device=dev)
+    geo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_d, cpu_m = geo_check.geocheck(intrs, extrs, depths, device="cpu")
+    geo_cpu_s = time.perf_counter() - t0
+    # the reprojection is elementwise in a fixed order: the card gives the CPU's
+    # values, and NaN where the CPU has NaN (0/0 where a zero depth meets a
+    # camera offset with no z)
+    src0 = int(geo_check.get_pairs(extrs, 15)[0, 0])
+    pair = [torch.as_tensor(x[k], dtype=torch.float32) for k in (0, src0)
+            for x in (depths, intrs, extrs)]
+    rep_cpu = geo_check.reproject_with_depth(*pair)
+    rep_card = [a.cpu() for a in geo_check.reproject_with_depth(*(x.to(dev) for x in pair))]
+    rep_bits = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                   for a, b in zip(rep_card, rep_cpu))
+    rep_nan = sum(int(b.isnan().sum()) for b in rep_cpu)
+    check(rep_bits == 0, f"geo_check reprojection card vs CPU: {rep_bits} elements differ")
+    disagree = int((card_m != cpu_m).sum())
+    check(1.0 - disagree / card_m.size >= GEO_MASK_AGREE,
+          f"geo_check masks differ at {disagree} of {card_m.size} pixels")
+    both = (card_m > 0) & (cpu_m > 0)
+    depth_rel = float((np.abs(card_d - cpu_d)[both] / np.abs(cpu_d[both])).max()) \
+        if both.any() else 0.0
+    check(both.any(), "geo_check kept no pixel")
+    check(depth_rel <= GEO_DEPTH_REL, f"geo_check depths card vs CPU: {depth_rel} relative")
+    emit("eval_geo_check", card=card, views=len(views), width=W, height=H,
+         kept_share=[float(m.mean()) for m in card_m], mask_disagreements=disagree,
+         reprojection_elements_differing=rep_bits, reprojection_nan=rep_nan,
+         depth_max_rel_err=depth_rel, card_s=geo_s, cpu_s=geo_cpu_s)
+
+    # 5. the auxiliary losses on the CLI's renders, card against CPU
+    np.random.seed(EVAL_LPIPS_SEED)
+    base_c2w = np.stack([np.linalg.inv(c.camera.world_view.cpu().numpy()) for c in train_cams])
+    near_far = np.concatenate([np.ravel(c.near_far) for c in train_cams])
+    c2w_v = get_near_virtual_pose(base_c2w, near_far)
+    R_v = c2w_v[:3, :3]
+    cam_v = Camera.create(R_v, -R_v.T @ c2w_v[:3, 3], test_cams[0].fovx, test_cams[0].fovy,
+                          W, H, device=dev)
+    with torch.no_grad():
+        outs = [render_model(c, model, zero) for c in (test_cams[0].camera,
+                                                      test_cams[1].camera, cam_v)]
+    counts.step("aux renders", {"raster_fwd": 3})
+    inputs = {
+        "img0": outs[0].render, "depth0": outs[0].rendered_depth[None],
+        "alpha0": outs[0].rendered_alpha[None], "depth1": outs[1].rendered_depth[None],
+        "img_v": outs[2].render, "depth_v": outs[2].rendered_depth[0],
+        "alpha_v": outs[2].rendered_alpha, "c2w_v": torch.tensor(c2w_v, dtype=torch.float32),
+        "intrs": torch.stack([torch.eye(4)] * len(train_cams)),
+        "w2cs": torch.stack([c.camera.world_view.cpu() for c in train_cams]),
+        "colors": torch.stack([c.gt_image().cpu() for c in train_cams]),
+    }
+    for i, c in enumerate(train_cams):
+        inputs["intrs"][i, :3, :3] = c.camera.K.cpu()
+    sample_idx = torch.randperm(AUX_PATCH ** 2, generator=torch.Generator().manual_seed(0))[:6]
+    # in float32, and in float64: the warp loss samples the training views at
+    # projected coordinates, and in float32 the card's and the CPU's
+    # projections part in the last bit, which puts a few of its 190k pixels
+    # on the other side of a texel edge, the frustum's edge or a tie between
+    # views, where its gradient jumps; its gradients are held in float64 only
+    aux_errs = {}
+    for dtype in (torch.float32, torch.float64):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_aux = aux_losses_on(dev, inputs, sample_idx, dtype)
+        torch.cuda.synchronize()
+        aux_s = time.perf_counter() - t0
+        cpu_aux = aux_losses_on("cpu", inputs, sample_idx, dtype)
+        errs = {"card_s": aux_s}
+        for name, (value, grads) in card_aux.items():
+            want_v, want_g = cpu_aux[name]
+            check(math.isfinite(value) and value != 0.0, f"aux {name}: value {value}")
+            value_err = abs(value - want_v) / max(abs(want_v), 1.0)
+            grad_err = max(float((g - want_g[k]).abs().max() / want_g[k].abs().max())
+                           for k, g in grads.items())
+            errs[name] = {"value": value, "value_rel_err": value_err, "grad_rel_err": grad_err}
+            check(value_err <= AUX_VALUE_REL, f"aux {name} ({dtype}): value {value} vs CPU {want_v}")
+            if dtype == torch.float64 or name != "get_virtual_warp_loss":
+                check(grad_err <= AUX_GRAD_REL,
+                      f"aux {name} ({dtype}): gradient error {grad_err} of max|g|")
+        aux_errs[str(dtype).removeprefix("torch.")] = errs
+    counts.step("aux losses", {})
+    emit("eval_aux", card=card, width=W, height=H, losses=aux_errs)
+
+    # 6. the viewer: a client on a thread sends one request at the CLI's
+    # size; the reply and a direct `render_for_viewer` equal render_model's
+    # 8-bit image
+    gui = network_gui.NetworkGUI(port=0)
+    reply = {}
+    request = viewer_request(test_cams[0].camera, test_cams[0].fovx, test_cams[0].fovy)
+    client = threading.Thread(target=viewer_client,
+                              args=(gui.listener.getsockname()[1], request, W * H * 3, reply))
+    client.start()
+    try:
+        deadline = time.perf_counter() + 60
+        while gui.conn is None and time.perf_counter() < deadline:
+            gui.try_connect()
+            time.sleep(0.01)
+        check(gui.conn is not None, "the viewer client never connected")
+        t0 = time.perf_counter()
+        gui.poll(model, scene_dir, 1, CLI_ITERATIONS)
+        poll_s = time.perf_counter() - t0
+        client.join(timeout=60)
+        check(not client.is_alive(), "the viewer client did not finish")
+        # the request as `receive` decodes it, rendered directly
+        decoded = type("Request", (), {"_read": lambda self: request})()
+        direct = network_gui.render_for_viewer(network_gui.NetworkGUI.receive(decoded)[0], model)
+    finally:
+        gui.close()
+        client.join(timeout=60)
+    counts.step("viewer", {"raster_fwd": 2})
+    with counts.aside(), torch.no_grad():
+        want = u8_image(render_model(test_cams[0].camera, model, zero).render).tobytes()
+    check(reply.get("verify") == scene_dir, f"viewer verify string {reply.get('verify')!r}")
+    check(reply.get("image") == want, "viewer reply differs from render_model's 8-bit image")
+    check(direct == want, "render_for_viewer differs from render_model's 8-bit image")
+    emit("eval_viewer", card=card, width=W, height=H, bytes=len(want), poll_ms=poll_s * 1e3)
+
+    # 7. the model's health
+    debug.assert_model_finite(model)
+    launches = counts.total()
+    emit("eval", card=card, launches=launches)
+    return {"launches": launches}
+
+
+def rank_kernels(serving: dict, train_launches: dict, pipe: dict, cli: dict,
+                 ev: dict) -> None:
     """The order in which the kernels lose the most time on the main paths:
     first any kernel slower than its library call (by that factor), then by
     the sum over the paths of launches x (kernel ms - bound ms), each path
     priced at its own shapes: the 1080p main view for serving and the 1080p
     steps, view 0 of the 4K pipeline (per-entry backward, the segment sum's
     route form against `index_add_` by `gauss_ids`) for its 12, test view 0
-    of the command-line path (504x378) for its launches."""
+    of the command-line path (504x378) for its launches and the eval
+    phase's."""
     lost = {
         "raster_fwd": (serving["serving_launches"]["raster_fwd"] + train_launches["raster_fwd"])
         * (serving["raster_fwd"]["ms"] - serving["raster_fwd"]["bound_ms"]),
@@ -1604,7 +2066,7 @@ def rank_kernels(serving: dict, train_launches: dict, pipe: dict, cli: dict) -> 
         ms, bound = pipe["per_launch"][per_launch]
         lost[name] += pipe["launches"][name] * (ms - bound)
     for name, (ms, bound) in cli["per_launch"].items():
-        lost[name] += cli["launches"][name] * (ms - bound)
+        lost[name] += (cli["launches"][name] + ev["launches"][name]) * (ms - bound)
     seg = pipe["segsum"]
     library_factor = {"segsum": seg["ms"] / seg["library_ms"]}
     def rank(k):
@@ -1666,18 +2128,24 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     pipe = pipeline_phase(dev)
 
-    # 8. the command-line path: scene on disk -> train CLI -> resume -> render CLI
+    # 8. the command-line path: scene on disk -> train CLI -> resume -> render CLI;
+    # 9. then evaluation and the remaining tools on that scene and model
     torch.cuda.empty_cache()
-    cli = cli_phase(dev, card)
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        cli = cli_phase(dev, card, tmp)
+        ev = eval_phase(dev, card, tmp, cli)
+        del cli["model"], cli["train_cams"], cli["test_cams"]
     emit("card_state", nvidia_smi=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     rows = {name: dict(serving[name], library_ms=None) for name in ("raster_fwd", "raster_bwd")}
     rows["segsum"] = pipe["segsum"]
-    # launches over the four main paths: 5 views, 6 steps at 1080p, 12 at 4K,
-    # and the command-line run (2,040 iterations, 30 rendered views)
+    # launches over the five main paths: 5 views, 6 steps at 1080p, 12 at 4K,
+    # the command-line run (2,040 iterations, 30 rendered views) and the eval
+    # phase (a 180-frame video, a 60-iteration acceptance run, 20 depths, ...)
     launches = {name: serving["serving_launches"][name] + train_launches[name]
-                + pipe["launches"][name] + cli["launches"][name] for name in KERNELS}
-    rank_kernels(serving, train_launches, pipe, cli)
+                + pipe["launches"][name] + cli["launches"][name] + ev["launches"][name]
+                for name in KERNELS}
+    rank_kernels(serving, train_launches, pipe, cli, ev)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -11,8 +11,10 @@ The flags and their defaults are the JAX CLI's, except:
 
 - `--backend` takes `cuda` (the tile path, default) or `oracle`;
 - `--device` is new;
-- `--data_parallel` > 1, `--multihost`, `--coordinator_address` and the
-  viewer's `--port` exit with a "not ported yet" message;
+- `--data_parallel` > 1, `--multihost` and `--coordinator_address` exit
+  with a "not ported yet" message;
+- `--port` starts the SIBR viewer's listener (`viewer/network_gui.py`) on
+  `--ip`, polled every iteration as in the JAX CLI;
 - `--detect_anomaly` turns on `torch.autograd.set_detect_anomaly`;
 - `--profile_dir` writes a `torch.profiler` trace of the main stage.
 
@@ -104,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ip", type=str, default="127.0.0.1")
     p.add_argument("--port", "--viewer_port", dest="viewer_port", type=int,
                    default=-1,
-                   help=f"SIBR remote-viewer port {NOT_PORTED}; -1 disables the listener")
+                   help="SIBR remote-viewer port; -1 disables the listener")
     return p
 
 
@@ -124,8 +126,6 @@ def main(argv=None):
         raise SystemExit(f"--multihost {NOT_PORTED}")
     if args.data_parallel > 1:
         raise SystemExit(f"--data_parallel {args.data_parallel} {NOT_PORTED}")
-    if args.viewer_port >= 0:
-        raise SystemExit(f"--port (the network viewer) {NOT_PORTED}")
     dev = resolve_device(args.device)
 
     if not args.model_path:
@@ -219,6 +219,14 @@ def main(argv=None):
     raster = RasterizerConfig()
     logger = TrainLogger(args.model_path, use_tensorboard=not args.no_tensorboard)
 
+    # live SIBR viewer (polled every iteration, `train.py:109-122`)
+    gui = None
+    if args.viewer_port >= 0:
+        from scgaussian_tpu_torch.viewer.network_gui import NetworkGUI
+
+        gui = NetworkGUI(host=args.ip, port=args.viewer_port)
+        print(f"Viewer listening on {args.ip}:{gui.listener.getsockname()[1]}")
+
     cam0 = scene.train_cameras[0]
     timer = StepTimer(pixels_per_step=cam0.width * cam0.height)
     t_start = time.time()
@@ -258,6 +266,9 @@ def main(argv=None):
 
     def callback(iteration, model, metrics, opt_state=None, raster=raster):
         dt = timer.stop()
+        if gui is not None:
+            gui.poll(model, os.path.abspath(args.source_path), iteration,
+                     opt_cfg.iterations, backend=args.backend, raster=raster)
         # one host sync per iteration, as in the JAX CLI
         loss = float(metrics.loss)
         ema["loss"] = 0.4 * loss + 0.6 * ema["loss"]
@@ -299,26 +310,30 @@ def main(argv=None):
             )
         timer.start()
 
-    with trace(args.profile_dir):
-        state = pipeline.run_main_stage(
-            model,
-            scene.bundle,
-            [c.camera for c in scene.train_cameras],
-            [c.gt_image() for c in scene.train_cameras],
-            view_ids=[scene.view_id(c) for c in scene.train_cameras],
-            stack_seed=args.seed,
-            opt_cfg=opt_cfg,
-            raster=raster,
-            extras=extras,
-            white_background=args.white_background,
-            is_dtu=scene.is_dtu,
-            backend=args.backend,
-            cameras_extent=scene.cameras_extent,
-            callback=callback,
-            first_iteration=first_iter,
-            opt_state=restored_opt,
-            generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
-        )
+    try:
+        with trace(args.profile_dir):
+            state = pipeline.run_main_stage(
+                model,
+                scene.bundle,
+                [c.camera for c in scene.train_cameras],
+                [c.gt_image() for c in scene.train_cameras],
+                view_ids=[scene.view_id(c) for c in scene.train_cameras],
+                stack_seed=args.seed,
+                opt_cfg=opt_cfg,
+                raster=raster,
+                extras=extras,
+                white_background=args.white_background,
+                is_dtu=scene.is_dtu,
+                backend=args.backend,
+                cameras_extent=scene.cameras_extent,
+                callback=callback,
+                first_iteration=first_iter,
+                opt_state=restored_opt,
+                generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
+            )
+    finally:
+        if gui is not None:
+            gui.close()
     model_io.save_checkpoint(
         os.path.join(args.model_path, f"chkpnt{args.iterations}.npz"),
         state.model,

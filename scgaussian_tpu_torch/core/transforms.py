@@ -62,3 +62,17 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
 
+
+
+def unpack_symmetric(six: torch.Tensor) -> torch.Tensor:
+    """Packed 6-vector -> full symmetric [..., 3, 3] matrix."""
+    xx, xy, xz, yy, yz, zz = (six[..., i] for i in range(6))
+    row0 = torch.stack([xx, xy, xz], dim=-1)
+    row1 = torch.stack([xy, yy, yz], dim=-1)
+    row2 = torch.stack([xz, yz, zz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def normalize(v: torch.Tensor, axis: int = -1, eps: float = 0.0) -> torch.Tensor:
+    n = torch.linalg.norm(v, dim=axis, keepdim=True)
+    return v / (n + eps)

@@ -1,7 +1,5 @@
-"""Losses: image losses and bilinear sampling (port of `scgaussian_tpu/losses`).
-
-`losses/aux.py` (smoothness, patch and ranking losses) is not ported yet.
-"""
+"""Losses: image losses, bilinear sampling and the auxiliary depth losses
+(port of `scgaussian_tpu/losses`)."""
 
 from scgaussian_tpu_torch.losses.image import (  # noqa: F401
     avgpool_ssim_map,
@@ -13,3 +11,12 @@ from scgaussian_tpu_torch.losses.image import (  # noqa: F401
     ssim,
 )
 from scgaussian_tpu_torch.losses.sampling import bilinear_sample_pix, grid_sample_2d  # noqa: F401
+from scgaussian_tpu_torch.losses.aux import (  # noqa: F401
+    cons_loss,
+    get_smooth_loss,
+    get_virtual_warp_loss,
+    margin_l2_loss,
+    patch_norm_mse_loss,
+    patchify,
+    ranking_loss,
+)

@@ -111,7 +111,7 @@ def avgpool_ssim_map(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return F.pad(im[None], (2, 2, 2, 2), mode="reflect")[0]
 
     x, y = refl(x), refl(y)
-    window = torch.full((5, 5), 1.0 / 25.0, dtype=torch.float32, device=x.device)
+    window = torch.full((5, 5), 1.0 / 25.0, dtype=x.dtype, device=x.device)
 
     def pool(im):
         return _depthwise_conv(im, window, 0)

@@ -25,14 +25,23 @@ from scgaussian_tpu.apps import render as j_render_app
 from scgaussian_tpu.apps import train as j_train_app
 from scgaussian_tpu.data import scene as jscene
 from scgaussian_tpu.data.synthetic import generate_scene as j_generate_scene
+from scgaussian_tpu.eval import metrics as j_metrics
 from scgaussian_tpu.model import io as j_io
 from scgaussian_tpu.model.gaussians import create_model as j_create_model
 from scgaussian_tpu.train import optim as joptim
+from scgaussian_tpu.train.main_stage import render_model as j_render_model
+from scgaussian_tpu_torch.apps import acceptance as t_acceptance_app
+from scgaussian_tpu_torch.apps import metrics as t_metrics_app
 from scgaussian_tpu_torch.apps import render as t_render_app
+from scgaussian_tpu_torch.apps import render_video as t_video_app
 from scgaussian_tpu_torch.apps import train as t_train_app
 from scgaussian_tpu_torch.data import ply as tply
 from scgaussian_tpu_torch.data import scene as tscene
+from scgaussian_tpu_torch.data.pose_utils import gen_poses
+from scgaussian_tpu_torch.eval import geo_check as t_geo_check
+from scgaussian_tpu_torch.eval import lpips as t_lpips
 from scgaussian_tpu_torch.model import io as t_io
+from scgaussian_tpu_torch.viewer import network_gui as t_gui
 from scgaussian_tpu_torch.utils import colormap, logging as tlogging, profiling
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
@@ -159,7 +168,7 @@ def test_train_and_render_clis_raise_without_a_gpu(scene_dir, trained, tmp_path,
 
 
 @pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--multihost"],
-                                   ["--coordinator_address", "localhost:1234"], ["--port", "0"]])
+                                   ["--coordinator_address", "localhost:1234"]])
 def test_flags_of_unported_modules_exit(scene_dir, tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported"):
         t_train_app.main(["-s", scene_dir, "-m", str(tmp_path / "m"), "--device", "cpu"] + flags)
@@ -221,6 +230,156 @@ def test_turbo_matches_matplotlib(tmp_path):
     np.testing.assert_array_equal(colormap.turbo_rgb(nan, 0.1, 0.7),
                                   (mapper.to_rgba(nan)[:, :, :3] * 255).astype(np.uint8))
     np.testing.assert_array_equal(colormap.TURBO, mpl.colormaps["turbo"].colors)
+
+
+# ---------------- metrics, acceptance, video and the viewer ----------------
+
+@pytest.fixture(scope="module")
+def rendered(trained, tmp_path_factory):
+    """A copy of the trained model directory holding the port's render
+    CLI's test renders."""
+    model_dir = str(tmp_path_factory.mktemp("evalmodel") / "model")
+    shutil.copytree(trained[0], model_dir)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the autouse fixture is not set up yet at module scope
+    try:
+        t_render_app.main(["-m", model_dir, "--iteration", str(ITERATIONS), "--bg_capacity",
+                           "4096", "--skip_train", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    return model_dir
+
+
+def read_json(model_dir, name) -> dict:
+    with open(os.path.join(model_dir, name)) as f:
+        return json.load(f)
+
+
+def test_metrics_cli_matches_jax_evaluate(rendered, tmp_path, monkeypatch):
+    """The port's metrics CLI and JAX's `evaluate` on the same renders:
+    the same keys in results.json and per_view.json, SSIM, PSNR and AVG of
+    each view within 1e-5, LPIPS null without weights."""
+    monkeypatch.delenv(t_lpips._ENV_VAR, raising=False)
+    model_dir = str(tmp_path / "model")
+    shutil.copytree(rendered, model_dir)
+    full = t_metrics_app.main(["-m", model_dir, "--device", "cpu"])
+    port = read_json(model_dir, "results.json"), read_json(model_dir, "per_view.json")
+    assert full == {model_dir: port[0]}
+    j_metrics.evaluate([model_dir])
+    ref = read_json(model_dir, "results.json"), read_json(model_dir, "per_view.json")
+    method = f"ours_{ITERATIONS}"
+    assert port[0].keys() == ref[0].keys() == {method}
+    assert port[0][method].keys() == ref[0][method].keys()
+    assert port[0][method]["LPIPS"] is None and "AVG_definition" in port[0][method]
+    views = port[1][method]
+    assert views.keys() == ref[1][method].keys()
+    assert len(views["PSNR"]) == 2
+    for metric, per_view in views.items():
+        for name, value in per_view.items():
+            want = ref[1][method][metric][name]
+            if metric == "LPIPS":
+                assert value is None and want is None
+            else:
+                assert abs(value - want) <= 1e-5 * max(1.0, abs(want)), (metric, name)
+
+
+def test_acceptance_skip_train_equals_the_metrics_cli(scene_dir, rendered, tmp_path):
+    """`acceptance --skip_train` renders the trained model again and gives
+    the metrics CLI's results.json."""
+    model_dir = str(tmp_path / "model")
+    shutil.copytree(rendered, model_dir)
+    t_metrics_app.main(["-m", model_dir, "--no_lpips", "--device", "cpu"])
+    want = read_json(model_dir, "results.json")
+    shutil.rmtree(os.path.join(model_dir, "test"))
+    results = t_acceptance_app.main(["-s", scene_dir, "-m", model_dir, "--skip_train",
+                                     "--iterations",
+                                     str(ITERATIONS), "--no_lpips", "--device", "cpu"])
+    assert results == want == read_json(model_dir, "results.json")
+    assert len(os.listdir(os.path.join(model_dir, "train", f"ours_{ITERATIONS}", "renders"))) == 3
+
+
+def test_render_video_matches_jax_render_model(trained, scene_dir, tmp_path):
+    """`render_video --max_frames 3` on the LLFF spiral (poses_bounds.npy
+    from `gen_poses`): frame PNGs within one 8-bit step of JAX's dense
+    oracle on the same PLY and cameras, and both videos readable."""
+    import cv2
+
+    scene = str(tmp_path / "scene")
+    shutil.copytree(scene_dir, scene)
+    gen_poses(scene)
+    model_dir = str(tmp_path / "model")
+    shutil.copytree(trained[0], model_dir)
+    seconds = t_video_app.main(["-m", model_dir, "-s", scene, "--max_frames", "3",
+                                "--bg_capacity", "4096", "--device", "cpu"])
+    assert [len(v) for v in seconds.values()] == [3, 3]
+    base = os.path.join(model_dir, "video", f"ours_{ITERATIONS}")
+    names = sorted(os.listdir(os.path.join(base, "frames")))
+    assert names == [f"{p}{i:05d}.png" for p in ("", "depth_") for i in range(3)]
+    for video in ("video_rgb.avi", "video_depth.avi"):
+        cap = cv2.VideoCapture(os.path.join(base, video))
+        assert cap.isOpened() and int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 3, video
+        cap.release()
+
+    jvideo = jscene.VideoScene(source_path=scene, model_path=model_dir, resolution=1)
+    assert len(jvideo.test_cameras) == 180  # the LLFF spiral (readers.py:346-348)
+    jmodel = j_io.load_ply(os.path.join(model_dir, "point_cloud", f"iteration_{ITERATIONS}",
+                                        "point_cloud.ply"), max_sh_degree=3, bg_capacity=4096)
+    for i, cam in enumerate(jvideo.test_cameras[:3]):
+        out = j_render_model(cam.camera, jmodel, jnp.zeros(3), backend="oracle")
+        want = (np.clip(np.asarray(out.render), 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+        got = png(os.path.join(base, "frames", f"{i:05d}.png"))
+        assert got.shape == want.shape == (48, 64, 3)
+        assert np.abs(got - want.astype(np.int32)).max() <= LSB, i
+
+
+def test_train_cli_serves_the_viewer(scene_dir, tmp_path, monkeypatch):
+    """`--port 0` starts the listener; a viewer that connected and sent one
+    request before training gets its render at iteration 1, the CLI polls
+    at every iteration, and it closes the listener at the end."""
+    import socket
+
+    from test_torch_eval import read_reply, send_message, viewer_message
+
+    opened = []
+
+    class Recording(t_gui.NetworkGUI):
+        def __init__(self, host, port):
+            super().__init__(host, port)
+            self.polls = 0
+            client = socket.create_connection(self.listener.getsockname(), timeout=30)
+            send_message(client, viewer_message(64, 48))
+            client.shutdown(socket.SHUT_WR)  # the next read sees the viewer leave
+            opened.append((self, client))
+
+        def poll(self, *args, **kwargs):
+            self.polls += 1
+            return super().poll(*args, **kwargs)
+
+    monkeypatch.setattr(t_gui, "NetworkGUI", Recording)
+    t_train_app.main(["-s", scene_dir, "-m", str(tmp_path / "m"), "--iterations", "3",
+                      "--test_iterations", "-1", "--save_iterations", "-1",
+                      "--port", "0"] + FLAGS)
+    gui, client = opened[0]
+    try:
+        assert len(opened) == 1 and gui.polls == 3
+        img, verify = read_reply(client, 64 * 48 * 3)
+        assert verify == os.path.abspath(scene_dir) and len(img) == 64 * 48 * 3
+        assert gui.conn is None and gui.listener.fileno() == -1
+    finally:
+        client.close()
+
+
+def test_eval_entry_points_raise_without_a_gpu(trained, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (t_metrics_app.main, t_video_app.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["-m", trained[0]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_acceptance_app.main(["-m", str(tmp_path / "m"), "--skip_train"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_geo_check.geocheck(np.eye(3)[None], np.eye(4)[None], np.ones((1, 4, 4)))
+    assert not os.path.exists(os.path.join(trained[0], "results.json"))
+    assert not os.path.exists(os.path.join(trained[0], "video"))
 
 
 # ---------------- checkpoints ----------------

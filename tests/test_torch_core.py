@@ -130,6 +130,14 @@ def test_transforms_match():
     close(cov_t, cov_j)
     close(ttr.strip_symmetric(cov_t), jtr.strip_symmetric(cov_j))
     close(ttr.inverse_sigmoid(torch.tensor(p)), jtr.inverse_sigmoid(jnp.asarray(p)), rtol=1e-5)
+    six = rng.normal(size=(50, 6)).astype(np.float32)
+    full = ttr.unpack_symmetric(torch.tensor(six))
+    close(full, jtr.unpack_symmetric(jnp.asarray(six)))
+    close(ttr.strip_symmetric(full), six)
+    close(ttr.unpack_symmetric(ttr.strip_symmetric(cov_t)), cov_j)
+    v = rng.normal(size=(50, 3, 4)).astype(np.float32)
+    for axis, eps in ((-1, 0.0), (1, 1e-3)):
+        close(ttr.normalize(torch.tensor(v), axis, eps), jtr.normalize(jnp.asarray(v), axis, eps))
 
 
 # ---------------- spherical harmonics ----------------
