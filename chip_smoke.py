@@ -22,6 +22,16 @@ then drives the port's paths:
   with one densify event and one opacity reset, on 450,000 ray Gaussians +
   65,536 background slots, where the backward routes by sort through the
   segment-sum kernel;
+- parallelism (`scgaussian_tpu_torch/parallel/`) on the one card: 3
+  data-parallel steps over an NCCL group of world size 1 against 3
+  `train_step`s on the 1080p model; two processes sharing the card in a
+  gloo group (a step of two cameras against the mean of their gradients,
+  then 12 `run_main_stage` iterations over the group, replicas bitwise
+  equal); 4 tile-row slices at 1920x1080/100k and 3840x2160/500k, one
+  after another, against the whole image (the compositing kernels at a
+  nonzero tile-row offset against their plain versions); the sharded
+  renders over the world-1 group; the train CLI refusing `--data_parallel
+  2` on one card;
 - the command line: a synthetic COLMAP scene of 20 views at 1008x756
   written to disk, the train CLI on it at `-r 2` (504x378, the size of
   LLFF at `-r 8`) under the LLFF few-shot protocol (3 training views, every
@@ -51,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -67,6 +78,8 @@ from pathlib import Path
 import cv2
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from PIL import Image
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -93,9 +106,10 @@ from scgaussian_tpu_torch.losses import aux, l1_loss, ssim
 from scgaussian_tpu_torch.model.densify import densify_and_prune, reset_opacity, update_stats
 from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, create_model, model_from_numpy
 from scgaussian_tpu_torch.model.io import load_ply, save_ply
+from scgaussian_tpu_torch.parallel import dp, hosts, primitives, tiles
 from scgaussian_tpu_torch.model.knn import knn_mean_sq_dist
 from scgaussian_tpu_torch.model.matches import (
-    build_match_bundle, init_zvals, matchloss_from_base, matchloss_from_renderdepth,
+    build_match_bundle, bundle_from_numpy, init_zvals, matchloss_from_base, matchloss_from_renderdepth,
     promote_matches, run_init_stage,
 )
 from scgaussian_tpu_torch.renderer import _build, raster
@@ -206,6 +220,13 @@ AUX_PATCH = 16  # 504x378 is not whole patches: patchify crops
 AUX_CONS_PATCH = 8
 AUX_VALUE_REL = 1e-5  # card vs CPU, of max(|cpu|, 1)
 AUX_GRAD_REL = 1e-4  # card vs CPU, of max|g| on the CPU
+PAR_STEPS = 3  # data-parallel steps over the world-1 group, and train_steps beside them
+PAR_LOSS_REL = 1e-6  # DP vs train_step: loss, relative
+PAR_LEAF_REL = 1e-5  # DP vs train_step: parameters and Adam moments, of each leaf's max
+PAR_FIRM = 1e-3  # parameters are compared where |m| > this share of the leaf's max |m|
+PAR_RUN_STEPS = 12  # run_main_stage iterations over the two-process gloo group
+PAR_SLICES = 4  # tile-row slices, rendered one after another
+PAR_JOIN_S = 240  # the two processes must end within this
 DEVICE = "cuda"
 KERNELS = ("raster_fwd", "raster_bwd", "segsum")
 REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
@@ -471,15 +492,17 @@ def project_model(cam, model):
                    shs=model.get_features(), active_sh_degree=model.max_sh_degree)
 
 
-def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
-    """Kernel vs plain version on the same bins; raises past the limits.
+def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None, rows=None) -> dict:
+    """Kernel vs plain version on the same bins (with `rows` = (row_lo,
+    ny_rows), the bins of that tile-row slice); raises past the limits.
     Image and depth get the stated tolerances; alpha, final T and the last
     contributor must agree to ALPHA_T_MAX and exactly, since the kernel
     rounds the threshold-deciding arithmetic step by step as the plain
     version does. Returns the errors, the evaluated pair count and the
     plain version's other work counts, the bound inputs and the kernel's
     final T and last contributor."""
-    bins = bin_gaussians(proj, W, H)
+    bins = bin_gaussians(proj, W, H, **({} if rows is None else dict(row_lo=rows[0],
+                                                                       ny_rows=rows[1])))
     attrs = raster.pack_attrs(proj)
     bg = torch.tensor([0.1, 0.2, 0.3], device=attrs.device)
     before = raster.LAUNCHES["raster_fwd"]
@@ -497,7 +520,7 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None) -> dict:
     err["image_pixels_err_gt_1e-4"] = int(((k_out[0] - p_out[0]).abs() > 1e-4).any(0).sum())
     err["last_contributor_mismatches"] = int((k_out[4] != p_out[4]).sum())
     emit("kernel_vs_plain", scene=name, width=W, height=H, gaussians=proj.depth.shape[0],
-         entries=bins.num_entries, **stats, **err)
+         entries=bins.num_entries, row_lo=bins.row_lo, ny_rows=bins.ny, **stats, **err)
     check(err["image_max_abs_err"] < img_max,
           f"{name}: image max err {err['image_max_abs_err']} >= {img_max}")
     check(err["depth_max_abs_err"] < depth_max,
@@ -560,7 +583,7 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
     error."""
     bins, attrs, bg, T, last = cmp["bins"], cmp["attrs"], cmp["bg"], cmp["T"], cmp["last"]
     before = dict(raster.LAUNCHES)
-    cots = random_cotangents(W, H, 1, attrs.device)
+    cots = random_cotangents(W, T.shape[0], 1, attrs.device)  # the bins' slab of rows
     kernel, plain = ((raster.raster_bwd_entries, raster.raster_bwd_entries_plain) if per_entry
                      else (raster.raster_bwd, raster.raster_bwd_plain))
     k = kernel(bins, attrs, bg, T, last, *cots, W, H)
@@ -582,6 +605,7 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
         out["plain_vs_autograd"] = group_errors(p, want)
     check(sum(counts[k] for k in PAIR_KINDS) == int(last.sum()), f"{name}: pair counts {counts}")
     emit("backward_vs_plain", scene=name, width=W, height=H, entries=bins.num_entries,
+         row_lo=bins.row_lo, ny_rows=bins.ny,
          epilogue="per_entry" if per_entry else "atomic", bitwise_repeat=bool(torch.equal(k, again)),
          **counts, **out)
     check(torch.equal(k, again), f"{name}: two per-entry launches differ")
@@ -959,7 +983,8 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     """The training main path: TRAIN_STEPS train_steps at 1080p on the
     hybrid model, cycling through TRAIN_VIEWS views, then the step's stage
     times (`bwd_kernel_t`: the backward kernel's, timed in serving_phases).
-    Raises on any failed check; returns the launches of the counted run."""
+    Raises on any failed check; returns the launches of the counted run and
+    the views, their ground truth and the match bundle."""
     W1, H1, _ = FULL
     num_ray, num_bg, capacity = HYBRID
     leaves = hybrid_leaves(num_ray, num_bg, capacity, seed=7)
@@ -1026,7 +1051,7 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     train_breakdown("main_path_hybrid", model, state, bundle, cams[0], gts[0], bg, cfg, extras,
                     {"backward_kernel": dict(bwd_kernel_t, scene="main_path_view0")})
     raster.LAUNCHES.update(launches)  # timing launches do not count
-    return launches
+    return dict(launches=launches, bundle=bundle, gts=gts, cams=cams)
 
 
 def train_breakdown(name, model, state, bundle, cam, gt, bg, cfg, extras, kernel_rows) -> None:
@@ -1396,6 +1421,435 @@ class CliRecorder:
         (pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage,
          TrainLogger.step, TrainLogger.eval, profiling._sync) = self._saved
         return False
+
+
+# ---------------- parallelism ----------------
+
+def leaves_close(name: str, got: dict, want: dict, rel: float, where: dict = None) -> float:
+    """Max over the leaves of max|got - want| / max|want|, taken over the
+    elements `where[key]` (a bool mask) where given; raises past `rel`."""
+    worst = 0.0
+    for key, w in want.items():
+        diff = (got[key] - w).abs()
+        if where and key in where:
+            diff = diff[where[key]]
+        err = float(diff.max()) if diff.numel() else 0.0
+        scale = float(w.abs().max())
+        check(err <= rel * scale or err == 0.0,
+              f"{name} {key}: max err {err} > {rel} * {scale}")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+    return worst
+
+
+def state_of(model, state) -> dict:
+    """Copies of the parameters and Adam moments, by name."""
+    out = {n: getattr(model, n).detach().clone() for n in PARAM_NAMES}
+    out.update({f"m.{n}": state.m[n].clone() for n in PARAM_NAMES})
+    out.update({f"v.{n}": state.v[n].clone() for n in PARAM_NAMES})
+    return out
+
+
+def dp_against_train_step(dev, group, leaves, bundle, cams, gts, bg, cfg, rcfg) -> dict:
+    """PAR_STEPS `dp_train_step`s over `group` and PAR_STEPS `train_step`s,
+    each from a model made from `leaves`, cycling through the views, with
+    the rasterizer config `rcfg`: per kind, the losses, the launches, and the
+    parameters, Adam moments and densify statistics after step 1 and after
+    the last step, and the last model and state."""
+    out = {}
+    for kind in ("dp", "single"):
+        model = model_from_numpy(leaves, 3, device=dev)
+        state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
+        raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+        losses, first = [], None
+        for it in range(1, PAR_STEPS + 1):
+            v = (it - 1) % TRAIN_VIEWS
+            if kind == "dp":
+                model, state, m = dp.dp_train_step(group, model, state, bundle, [cams[v]],
+                                                   [gts[v]], [v], it, bg, cfg, raster=rcfg)
+            else:
+                model, state, m = train_step(model, state, bundle, cams[v], gts[v], v, it, bg,
+                                             cfg, raster=rcfg)
+            losses.append(float(m.loss))
+            if it == 1:
+                first = state_of(model, state)
+        torch.cuda.synchronize()
+        final = state_of(model, state)
+        final.update({n: getattr(model, n).clone() for n in ("xyz_gradient_accum", "denom",
+                                                             "max_radii2d")})
+        out[kind] = dict(model=model, state=state, losses=losses, first=first, final=final,
+                         launches=dict(raster.LAUNCHES))
+    return out
+
+
+def grad_elements(model) -> int:
+    """Floats in one DP step's SUM all-reduce while densifying: every
+    parameter's gradient, the three losses and two densify columns."""
+    return sum(getattr(model, n).numel() for n in PARAM_NAMES) + 3 + 2 * model.total
+
+
+def par_rank(rank: int, port: int, tmp: str, device_type: str) -> None:
+    """One of the two processes that share the card over gloo (CUDA tensors):
+    one data-parallel step on views 0 and 1, the gloo all-reduce's time at
+    the step's size, then PAR_RUN_STEPS iterations of `run_main_stage` over
+    the group (one densify event and one opacity reset). Writes its states,
+    losses, launch counts and times into `tmp`."""
+    hosts.initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=device_type)
+    try:
+        dev = hosts.local_device(device_type)
+        group = dp.make_group(2, device=dev)
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        bundle = bundle_from_numpy(inputs["bundle"], device=dev)
+        gts = [g.to(dev) for g in inputs["gts"]]
+        W1, H1, _ = FULL
+        cams = view_cameras(W1, H1, TRAIN_VIEWS, dev)
+        model = model_from_numpy(hybrid_leaves(*HYBRID, seed=7), 3, device=dev)
+        dp.broadcast_model(group, model)
+        bg = torch.zeros(3, device=dev)
+        cfg = OptimizationConfig(**PIPE_OPT)
+        state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
+        raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+        model, state, m1 = dp.dp_train_step(group, model, state, bundle, cams[:2], gts[:2],
+                                            [0, 1], 1, bg, cfg)
+        torch.cuda.synchronize()
+        step1 = {k: v.cpu() for k, v in state_of(model, state).items()}
+        buf = torch.ones(grad_elements(model), device=dev)
+        reduce_t = cuda_times(lambda: dist.all_reduce(buf, group=group))
+        losses, slots = [], [model.total, model.total]
+
+        def record(it, m, met, **_):
+            losses.append(float(met.loss))
+            slots.append(m.total)  # the next step's slots: densify may grow them
+
+        t0 = time.perf_counter()
+        out = run_main_stage(
+            model, bundle, cams, gts, list(range(TRAIN_VIEWS)), stack_seed=21, opt_cfg=cfg,
+            iterations=1 + PAR_RUN_STEPS, first_iteration=1, opt_state=state, group=group,
+            generator=torch.Generator(device=dev).manual_seed(22), callback=record)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        by_sort = sum(raster.sort_route(n, W1, H1, RasterizerConfig())
+                      for n in slots[:1 + PAR_RUN_STEPS])
+        final = {k: v.cpu() for k, v in state_of(out.model, out.opt_state).items()}
+        torch.save(dict(step1=step1, final=final, loss1=float(m1.loss), losses=losses,
+                        bg_alive=int(out.model.bg_alive.sum()), slots=out.model.total,
+                        launches=dict(raster.LAUNCHES), steps_by_sort=by_sort,
+                        all_reduce=reduce_t, run_s=run_s,
+                        elements=buf.numel()),
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        hosts.shutdown()
+
+
+def two_process_gloo(dev, bundle, gts, cams, card: str) -> dict:
+    """Phase (b): the two processes over gloo; the parent holds step 1
+    against its own mean of the two cameras' gradients and one
+    `apply_update`, and both ranks bitwise equal after step 1 and after the
+    run. Returns the processes' launches."""
+    cfg, extras = OptimizationConfig(**PIPE_OPT), TrainExtras()
+    bg = torch.zeros(3, device=dev)
+    with tempfile.TemporaryDirectory(prefix="par_") as tmp:
+        fields = {f.name: getattr(bundle, f.name) for f in dataclasses.fields(bundle)}
+        torch.save(dict(bundle={k: v.cpu().numpy() if torch.is_tensor(v) else v
+                                for k, v in fields.items()},
+                        gts=[g.cpu() for g in gts]), os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(par_rank, args=(hosts.free_port(), tmp, dev.type), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + PAR_JOIN_S
+        try:
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                check(time.monotonic() < deadline, f"two gloo processes ran past {PAR_JOIN_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+
+    # the reference: the mean of the two cameras' gradients, one update
+    before = dict(raster.LAUNCHES)
+    model = model_from_numpy(hybrid_leaves(*HYBRID, seed=7), 3, device=dev)
+    leaves = [getattr(model, n) for n in PARAM_NAMES]
+    grads = []
+    for v in (0, 1):
+        fn = make_camera_loss(model, bundle, cams[v], gts[v], v, bg, cfg, RasterizerConfig(),
+                              extras, "cuda", False)
+        loss, _ = fn(torch.zeros(model.total, 2, device=dev, requires_grad=True))
+        grads.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+    mean = {n: ((a if a is not None else torch.zeros_like(x))
+                + (b if b is not None else torch.zeros_like(x))) / 2
+            for n, x, a, b in zip(PARAM_NAMES, leaves, *grads)}
+    state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
+    model, state = apply_update(model, state, mean, 1, cfg)
+    torch.cuda.synchronize()
+    raster.LAUNCHES.update(before)  # reference launches do not count
+    ref = {k: v.cpu() for k, v in state_of(model, state).items()}
+    firm = {n: ref[f"m.{n}"].abs() > PAR_FIRM * ref[f"m.{n}"].abs().max() for n in PARAM_NAMES}
+    step1_err = leaves_close("gloo step 1 vs the mean of two gradients",
+                             {k: ranks[0]["step1"][k] for k in ref}, ref, PAR_LEAF_REL,
+                             where=firm)  # parameters where the gradient is firm (phase a)
+    for key in ("step1", "final"):
+        for name, t in ranks[0][key].items():
+            check(torch.equal(t, ranks[1][key][name]), f"gloo ranks differ in {key} {name}")
+    a, b = ranks
+    check(a["losses"] == b["losses"] and len(a["losses"]) == PAR_RUN_STEPS,
+          f"gloo ranks' losses {a['losses']} / {b['losses']}")
+    check(all(math.isfinite(x) for x in a["losses"]), f"gloo losses {a['losses']}")
+    check(a["bg_alive"] > 0 and a["bg_alive"] == b["bg_alive"], f"bg alive {a['bg_alive']}")
+    for r in ranks:
+        want = {"raster_fwd": 1 + PAR_RUN_STEPS, "raster_bwd": 1 + PAR_RUN_STEPS,
+                "segsum": r["steps_by_sort"]}  # capacity growth may switch the route
+        check(r["launches"] == want, f"a gloo rank launched {r['launches']}, not {want}")
+    emit("parallel_gloo", card=card, ranks=2, backend="gloo", tensors="cuda", views=[0, 1],
+         step1_max_rel_err=step1_err, bitwise_equal_ranks=True, losses=a["losses"],
+         loss_step1=a["loss1"], bg_alive=a["bg_alive"], slots=a["slots"],
+         steps_by_sort=a["steps_by_sort"],
+         all_reduce_elements=a["elements"], all_reduce_ms=[r["all_reduce"] for r in ranks],
+         run_s=[r["run_s"] for r in ranks], run_ms_per_iteration=[
+             r["run_s"] * 1e3 / PAR_RUN_STEPS for r in ranks],
+         wall_s=wall_s, launches=[r["launches"] for r in ranks])
+    return {k: a["launches"][k] + b["launches"][k] for k in KERNELS}
+
+
+def slice_grads(proj, attrs, bg, W, H, cots, by_sort, slices=None):
+    """Colour/depth/alpha and d_attrs of sum(out * cots): the whole image
+    through RasterizeFn, or with `slices` (rows per slice) the slices one
+    after another through `rasterize_rows`, their gradients summed."""
+    a = attrs.detach().clone().requires_grad_()
+    with torch.enable_grad():
+        if slices is None:
+            color, depth, alpha = raster.RasterizeFn.apply(a, bg, bin_gaussians(proj, W, H),
+                                                           W, H, by_sort)
+            outs = [color, depth[None], alpha[None]]
+        else:
+            parts = [raster.rasterize_rows(proj, W, H, bg, r * slices, slices, attrs=a)
+                     for r in range(PAR_SLICES)]
+            outs = [torch.cat([p[i] for p in parts], dim=1) for i in range(3)]
+        loss = sum((o * c).sum() for o, c in zip(outs, cots))
+        (g,) = torch.autograd.grad(loss, a)
+    return [o.detach() for o in outs], g
+
+
+def row_slices_phase(dev, card: str, name: str, scene: dict, W: int, H: int) -> dict:
+    """Phase (c) at one bench scene: PAR_SLICES row slices, one after
+    another, bitwise the whole image, their summed attribute gradients
+    within BWD_REL_MAX of scale of the whole image's; the last slice's
+    kernels (a nonzero tile-row offset, ragged) against their plain
+    versions, with their times beside the whole image's. Returns the
+    counted launches of the slices' run."""
+    cam = bench_camera(W, H, dev)
+    proj = project_scene(cam, scene, dev)
+    attrs = raster.pack_attrs(proj)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    by_sort = raster.sort_route(attrs.shape[0], W, H, RasterizerConfig())
+    rows_per, padded = tiles.row_slices(H, PAR_SLICES)
+    rng = np.random.default_rng(31)
+    cots = [torch.tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+            for sh in ((3, H, W), (1, H, W), (1, H, W))]
+    before = dict(raster.LAUNCHES)
+    whole, g_whole = slice_grads(proj, attrs, bg, W, H, cots, by_sort)
+    torch.cuda.synchronize()
+    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    sliced, g_sliced = slice_grads(proj, attrs, bg, W, H, cots, by_sort, slices=rows_per)
+    torch.cuda.synchronize()
+    launches = dict(raster.LAUNCHES)
+    raster.LAUNCHES.update(before)
+    check(launches == {"raster_fwd": PAR_SLICES, "raster_bwd": PAR_SLICES,
+                       "segsum": PAR_SLICES if by_sort else 0},
+          f"{name}: {PAR_SLICES} slices launched {launches}")
+    for key, a, b in zip(("color", "depth", "alpha"), sliced, whole):
+        check(torch.equal(a, b), f"{name}: the slices' {key} differs from the whole image's")
+    errs = group_errors(g_sliced, g_whole)
+    check_groups(f"{name} slices' gradients vs the whole image's", errs, BWD_REL_MAX)
+
+    # the kernels of the slice that holds the last tile row (a nonzero offset,
+    # ragged) against their plain versions, and times
+    index = ((H + raster.TILE - 1) // raster.TILE - 1) // rows_per
+    last = index * rows_per
+    rows = H - last * raster.TILE
+    cmp = compare_kernel(f"{name}_slice{index}", proj, W, H, img_max=1e-2,
+                         depth_max=1e-1, img_mean=1e-6, rows=(last, rows_per))
+    bwd = compare_backward(f"{name}_slice{index}", cmp, W, H, per_entry=by_sort)
+    sb, sa, sbg = cmp["bins"], cmp["attrs"], cmp["bg"]
+    whole_bins = bin_gaussians(proj, W, H)
+    with torch.no_grad():
+        _, _, _, Tw, lw = raster.raster_fwd(whole_bins, sa, sbg, W, H)
+    cw = random_cotangents(W, H, 1, dev)
+    bwd_fn = raster.raster_bwd_entries if by_sort else raster.raster_bwd
+    before = dict(raster.LAUNCHES)
+    times = {
+        "fwd_whole": cuda_times(lambda: raster.raster_fwd(whole_bins, sa, sbg, W, H)),
+        "fwd_slice": cuda_times(lambda: raster.raster_fwd(sb, sa, sbg, W, H)),
+        "bwd_whole": cuda_times(lambda: bwd_fn(whole_bins, sa, sbg, Tw, lw, *cw, W, H)),
+        "bwd_slice": cuda_times(lambda: bwd_fn(sb, sa, sbg, bwd["T"], bwd["last"], *bwd["cots"],
+                                               W, H)),
+    }
+    raster.LAUNCHES.update(before)  # timing launches do not count
+    f_bound = kernel_bound_ms(sb, sa, W, rows, cmp["pairs"])
+    b_bound = kernel_bound_ms_bwd(sb, sa, W, rows, bwd["counts"], per_entry=by_sort)
+    emit("parallel_row_slices", card=card, scene=name, width=W, height=H,
+         gaussians=attrs.shape[0], slices=PAR_SLICES, rows_per_slice=rows_per,
+         padded_rows=padded, tile_rows=(H + raster.TILE - 1) // raster.TILE,
+         route="sort" if by_sort else "atomic", launches=launches, bitwise_equal=True,
+         grad_errors=errs, offset_slice=dict(row_lo=last, pixel_rows=rows,
+                                             entries=sb.num_entries),
+         kernel_ms=times, fwd_slice_bound_ms=f_bound, bwd_slice_bound_ms=b_bound)
+    return dict(launches=launches, times=times, fwd_err=max(
+        cmp["err"][f"{k}_max_abs_err"] for k in ("image", "depth", "alpha", "T")),
+        bwd_err=bwd["max_abs_err"], f_bound=f_bound, b_bound=b_bound, proj=proj)
+
+
+def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
+    """Parallelism on one card: (a) PAR_STEPS `dp_train_step`s over an NCCL
+    group of world size 1 against PAR_STEPS `train_step`s from the same
+    state on the 1080p hybrid model; (b) two processes sharing the card over
+    gloo; (c) PAR_SLICES tile-row slices at bench_full and bench_dense, and
+    the sharded renders over group (a); (d) the train CLI's `--data_parallel
+    2` exit. Raises on any failed check; returns the counted launches (the
+    DP steps, both gloo processes' runs, the slices and the sharded
+    renders) and the kernels' times at a nonzero offset."""
+    t_phase = time.perf_counter()
+    bundle, gts, cams = train_ctx["bundle"], train_ctx["gts"], train_ctx["cams"]
+    group = dp.make_group(1, device=dev)
+    check(dist.get_backend(group) == hosts.default_backend(dev)
+          and dist.get_world_size(group) == 1,
+          f"group (a): {dist.get_backend(group)}, world {dist.get_world_size(group)}")
+    bg = torch.zeros(3, device=dev)
+    cfg = OptimizationConfig()
+    leaves = hybrid_leaves(*HYBRID, seed=7)
+    counted = dict.fromkeys(KERNELS, 0)
+
+    # (a) DP at world size 1 against train_step: by the route by sort (no
+    # atomics) every bit must agree; by the main path's atomic route the
+    # backward sums in another order each run
+    runs = {route: dp_against_train_step(dev, group, leaves, bundle, cams, gts, bg, cfg, rcfg)
+            for route, rcfg in (("sort", RasterizerConfig(entry_budget=raster.SORT_ROUTE_MIN_L)),
+                                ("atomic", RasterizerConfig()))}
+    sort_dp, sort_one = runs["sort"]["dp"], runs["sort"]["single"]
+    check(sort_dp["launches"] == sort_one["launches"] == dict.fromkeys(KERNELS, PAR_STEPS),
+          f"by sort: DP launched {sort_dp['launches']}, train_step {sort_one['launches']}")
+    check(sort_dp["losses"] == sort_one["losses"],
+          f"by sort: DP losses {sort_dp['losses']}, train_step {sort_one['losses']}")
+    for key, t in sort_one["final"].items():
+        check(torch.equal(sort_dp["final"][key], t), f"by sort: DP and train_step differ in {key}")
+    dp_run, one = runs["atomic"]["dp"], runs["atomic"]["single"]
+    check(dp_run["launches"] == one["launches"] == {"raster_fwd": PAR_STEPS,
+                                                    "raster_bwd": PAR_STEPS, "segsum": 0},
+          f"DP launched {dp_run['launches']}, train_step {one['launches']}")
+    for k in KERNELS:
+        counted[k] += dp_run["launches"][k]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dp_run["losses"], one["losses"]))
+    check(loss_rel <= PAR_LOSS_REL, f"DP vs train_step loss: {loss_rel} relative")
+    # after the first step from one state the two differ by the atomic order
+    # alone: moments within PAR_LEAF_REL everywhere; Adam moves a parameter by
+    # about lr where its gradient sits at that noise floor, so parameters are
+    # held where the gradient is firm (|m| > PAR_FIRM of the leaf's max), as
+    # the CPU tests hold the port's step against JAX's; later steps start from
+    # states that differ, and are reported
+    got, want = dp_run["first"], one["first"]
+    moments = [k for k in want if "." in k]
+    leaf_rel = leaves_close("DP vs train_step, Adam moments after step 1",
+                            {k: got[k] for k in moments}, {k: want[k] for k in moments},
+                            PAR_LEAF_REL)
+    firm = {n: want[f"m.{n}"].abs() > PAR_FIRM * want[f"m.{n}"].abs().max() for n in PARAM_NAMES}
+    param_rel = leaves_close("DP vs train_step, parameters after step 1",
+                             {n: got[n] for n in PARAM_NAMES}, {n: want[n] for n in PARAM_NAMES},
+                             PAR_LEAF_REL, where=firm)
+    firm_share = (sum(int(f.sum()) for f in firm.values())
+                  / sum(int((want[f"m.{n}"] != 0).sum()) for n in PARAM_NAMES))
+    last_rel = {k: float((dp_run["final"][k] - t).abs().max() / t.abs().max())
+                for k, t in one["final"].items() if float(t.abs().max()) > 0}
+    model, state = dp_run["model"], dp_run["state"]
+    it = iter(range(100, 10_000))
+    before = dict(raster.LAUNCHES)
+    step_t = {
+        "dp_train_step": cuda_times(lambda: dp.dp_train_step(
+            group, model, state, bundle, [cams[0]], [gts[0]], [0], next(it), bg, cfg)),
+        "train_step": cuda_times(lambda: train_step(model, state, bundle, cams[0], gts[0], 0,
+                                                    next(it), bg, cfg)),
+    }
+    buf = torch.ones(grad_elements(model), device=dev)
+    step_t["nccl_all_reduce_world1"] = cuda_times(lambda: dist.all_reduce(buf, group=group))
+    raster.LAUNCHES.update(before)  # timing launches do not count
+    emit("parallel_dp_world1", card=card, backend=dist.get_backend(group), world=1,
+         steps=PAR_STEPS,
+         width=cams[0].width, height=cams[0].height, gaussians=model.total,
+         losses_dp=dp_run["losses"], losses_train_step=one["losses"], loss_max_rel_err=loss_rel,
+         sort_route_bitwise_equal=True, step1_moment_max_rel_err=leaf_rel,
+         step1_param_max_rel_err_firm=param_rel, firm_share_of_moved=firm_share,
+         after_steps_max_rel_err=last_rel,
+         launches=dp_run["launches"], times=step_t,
+         all_reduce_elements=buf.numel(),
+         dp_overhead_ms=step_t["dp_train_step"]["median_ms"] - step_t["train_step"]["median_ms"])
+    del runs, dp_run, one, sort_dp, sort_one, model, state, buf, got, want
+    torch.cuda.empty_cache()
+
+    # (b) two processes sharing the card over gloo
+    for k, n in two_process_gloo(dev, bundle, gts, cams, card).items():
+        counted[k] += n
+
+    # (c) row slices at the bench scenes, then the sharded renders over group (a)
+    slices = {}
+    for name, (W, H, N), log_scale in (("bench_full", FULL, (-5.5, -4.0)),
+                                       ("bench_dense", DENSE, (-5.5, -4.0))):
+        scene = bench_scene(W, H, N, 0, log_scale)
+        slices[name] = row_slices_phase(dev, card, name, scene, W, H)
+        for k in KERNELS:
+            counted[k] += slices[name]["launches"][k]
+        del scene
+    W, H, _ = FULL
+    proj = slices["bench_full"].pop("proj")
+    slices["bench_dense"].pop("proj")
+    bg0 = torch.zeros(3, device=dev)
+    scene = bench_scene(*FULL, 0, (-5.5, -4.0))
+    t = {k: torch.tensor(v, device=dev) for k, v in scene.items()}
+    cam = bench_camera(W, H, dev)
+    grid = primitives.make_group_grid(1, 1)
+    with torch.no_grad():
+        before = dict(raster.LAUNCHES)
+        want = raster.rasterize(proj, W, H, bg0)
+        raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+        got_tiles = tiles.rasterize_tile_sharded(group, proj, W, H, bg0)
+        got_prim = primitives.render_sharded(grid, cam, t["means"], t["opac"], t["scales"],
+                                             t["quats"], t["shs"], bg0)
+        torch.cuda.synchronize()
+        sharded_launches = dict(raster.LAUNCHES)
+        raster.LAUNCHES.update(before)
+    check(sharded_launches == {"raster_fwd": 2, "raster_bwd": 0, "segsum": 0},
+          f"the sharded renders launched {sharded_launches}")
+    for label, got in (("rasterize_tile_sharded", got_tiles), ("render_sharded", got_prim)):
+        for key, a, b in zip(("color", "depth", "alpha"), got[:3], want):
+            check(torch.equal(a, b), f"{label} {key} differs from rasterize")
+        check(int(got[3]) == 0, f"{label} overflow {int(got[3])}")
+    for k in KERNELS:
+        counted[k] += sharded_launches[k]
+    emit("parallel_sharded_renders", card=card, group=f"{dist.get_backend(group)}, world 1",
+         width=W, height=H,
+         gaussians=proj.depth.shape[0], bitwise_equal=True, launches=sharded_launches)
+    del proj, scene, t, got_tiles, got_prim, want
+
+    # (d) the train CLI refuses what one card cannot run
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="dp_cli_") as tmp:
+        out_dir = os.path.join(tmp, "model")
+        before = dict(raster.LAUNCHES)
+        try:
+            train_cli.main(["-s", os.path.join(tmp, "no_scene"), "-m", out_dir,
+                            "--data_parallel", str(cards + 1)])
+            exited = None
+        except SystemExit as e:
+            exited = str(e)
+        check(exited is not None and "available devices" in exited,
+              f"--data_parallel {cards + 1} on {cards} card(s): {exited!r}")
+        check(not os.path.exists(out_dir) and raster.LAUNCHES == before,
+              "the refused CLI wrote or launched something")
+    emit("parallel_cli_refuses", card=card, cards=cards, data_parallel=cards + 1, message=exited)
+    hosts.shutdown()
+    seconds = time.perf_counter() - t_phase
+    emit("parallel", card=card, launches=counted, seconds=seconds)
+    return dict(launches=counted, slices=slices, seconds=seconds)
 
 
 def init_loss_floor(bundle, samples: int) -> float:
@@ -2110,7 +2564,8 @@ def main() -> int:
     # 5. one training step: 6 steps at 1080p (atomic route), stage times
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    train_launches = training_phase(dev, serving["raster_bwd_times"])
+    train_ctx = training_phase(dev, serving["raster_bwd_times"])
+    train_launches = train_ctx.pop("launches")
 
     # 6. the dense 4K serving regime
     torch.cuda.empty_cache()
@@ -2128,8 +2583,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     pipe = pipeline_phase(dev)
 
-    # 8. the command-line path: scene on disk -> train CLI -> resume -> render CLI;
-    # 9. then evaluation and the remaining tools on that scene and model
+    # 8. parallelism on one card: DP over a world-1 NCCL group, two processes over
+    # gloo, tile-row slices and the sharded renders, the CLI's refusal
+    torch.cuda.empty_cache()
+    par = parallel_phase(dev, card, train_ctx)
+    del train_ctx
+
+    # 9. the command-line path: scene on disk -> train CLI -> resume -> render CLI;
+    # 10. then evaluation and the remaining tools on that scene and model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
         cli = cli_phase(dev, card, tmp)
@@ -2139,12 +2600,14 @@ def main() -> int:
 
     rows = {name: dict(serving[name], library_ms=None) for name in ("raster_fwd", "raster_bwd")}
     rows["segsum"] = pipe["segsum"]
-    # launches over the five main paths: 5 views, 6 steps at 1080p, 12 at 4K,
-    # the command-line run (2,040 iterations, 30 rendered views) and the eval
-    # phase (a 180-frame video, a 60-iteration acceptance run, 20 depths, ...)
+    # launches over the six main paths: 5 views, 6 steps at 1080p, 12 at 4K,
+    # the parallel phase (3 DP steps, two gloo processes' 13 steps each, 2 x 4
+    # row slices, 2 sharded renders), the command-line run (2,040 iterations,
+    # 30 rendered views) and the eval phase (a 180-frame video, a 60-iteration
+    # acceptance run, 20 depths, ...)
     launches = {name: serving["serving_launches"][name] + train_launches[name]
-                + pipe["launches"][name] + cli["launches"][name] + ev["launches"][name]
-                for name in KERNELS}
+                + pipe["launches"][name] + par["launches"][name] + cli["launches"][name]
+                + ev["launches"][name] for name in KERNELS}
     rank_kernels(serving, train_launches, pipe, cli, ev)
 
     print(card, flush=True)

@@ -11,8 +11,14 @@ The flags and their defaults are the JAX CLI's, except:
 
 - `--backend` takes `cuda` (the tile path, default) or `oracle`;
 - `--device` is new;
-- `--data_parallel` > 1, `--multihost` and `--coordinator_address` exit
-  with a "not ported yet" message;
+- `--data_parallel D` trains over a process group of D ranks, one per
+  device (`parallel/dp.py`): under `--multihost` the D processes are
+  launched by the user, the same command once each with its
+  `--process_id` (or the `env://` variables), and D must equal their
+  number; without it the CLI starts D local ranks itself, one process per
+  visible GPU, or D gloo processes with `--device cpu`. Only process 0
+  evaluates, saves and writes `cfg_args.json`. The guards come first,
+  before the scene is read;
 - `--port` starts the SIBR viewer's listener (`viewer/network_gui.py`) on
   `--ip`, polled every iteration as in the JAX CLI;
 - `--detect_anomaly` turns on `torch.autograd.set_detect_anomaly`;
@@ -31,12 +37,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-NOT_PORTED = "is not ported to the PyTorch package yet"
+from scgaussian_tpu_torch.parallel import dp, hosts
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,11 +96,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on; 'cpu' runs the kernels' plain versions")
     p.add_argument("--data_parallel", type=int, default=0, metavar="D",
-                   help=f"data-parallel training over D devices {NOT_PORTED}; "
-                        "0/1 = single-device")
-    p.add_argument("--multihost", action="store_true", help=f"multi-host training {NOT_PORTED}")
+                   help="train data-parallel over D devices, one rank each (camera-batch "
+                        "DP: each iteration consumes D cameras, gradients all-reduced). "
+                        "0/1 = single-device. With --multihost, D counts the ranks of all "
+                        "hosts; without it, the CLI starts D local ranks")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed process group before touching the device "
+                        "(rendezvous from --coordinator_address/--num_processes/--process_id, "
+                        "or the env:// variables). Launch the SAME command once per rank.")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help=f"host:port of process 0 (implies --multihost) {NOT_PORTED}")
+                   help="host:port of process 0 (implies --multihost)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--profile_dir", type=str, default=None,
@@ -122,11 +135,45 @@ def main(argv=None):
     from scgaussian_tpu_torch.utils.profiling import StepTimer, trace
 
     args = build_parser().parse_args(argv)
-    if args.multihost or args.coordinator_address is not None:
-        raise SystemExit(f"--multihost {NOT_PORTED}")
-    if args.data_parallel > 1:
-        raise SystemExit(f"--data_parallel {args.data_parallel} {NOT_PORTED}")
+    multihost = args.multihost or args.coordinator_address is not None
     dev = resolve_device(args.device)
+    if multihost:
+        if not args.model_path:
+            raise SystemExit("--multihost requires an explicit -m/--model_path "
+                             "(the random default would diverge per process)")
+        if args.viewer_port >= 0:
+            raise SystemExit("--port (viewer) is unsupported with --multihost")
+        if args.data_parallel <= 1:
+            raise SystemExit(
+                "--multihost requires --data_parallel D (the process group is the only "
+                "thing that spans hosts; single-device training would run "
+                f"{args.num_processes or 'several'} isolated replicas)")
+        # the group forms before anything touches the device
+        hosts.initialize_multihost(args.coordinator_address, args.num_processes,
+                                   args.process_id, device=dev)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if args.data_parallel != world:
+            hosts.shutdown()
+            raise SystemExit(
+                f"--data_parallel {args.data_parallel} != {world} ranks: under --multihost "
+                "the group must span every rank of every participating host")
+        dev = hosts.local_device(dev)
+        print(f"[multihost] rank {dist.get_rank()}/{world} on {dev}")
+    elif args.data_parallel > 1:
+        n_avail = (torch.cuda.device_count() if dev.type == "cuda" else os.cpu_count() or 1)
+        if args.data_parallel > n_avail:
+            raise SystemExit(f"--data_parallel {args.data_parallel} > {n_avail} available "
+                             f"devices ({dev.type})")
+        if args.viewer_port >= 0:
+            raise SystemExit("--port (viewer) is unsupported with --data_parallel: "
+                             "the ranks are separate processes")
+        argv = list(argv if argv is not None else sys.argv[1:])
+        if not args.model_path:  # one output directory for every rank
+            import uuid
+
+            argv += ["-m", os.path.join("./output/", str(uuid.uuid4())[:10])]
+        return launch_local_ranks(argv, args.data_parallel)
+    primary = hosts.is_primary()
 
     if not args.model_path:
         import uuid
@@ -136,8 +183,9 @@ def main(argv=None):
     print(f"Optimizing {args.model_path}")
 
     # cfg persistence (JSON analog of the reference cfg_args, train.py:225-226)
-    with open(os.path.join(args.model_path, "cfg_args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if primary:
+        with open(os.path.join(args.model_path, "cfg_args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     opt_cfg = OptimizationConfig(
         iterations=args.iterations,
@@ -205,19 +253,22 @@ def main(argv=None):
             f"final loss {float(init_result.final_loss):.5f}, "
             f"{model.num_ray} ray Gaussians promoted"
         )
-        model_io.save_matchpoints(
-            scene.bundle,
-            init_result.best_z,
-            scene.base_names,
-            scene.init_point_cloud_dir(extras.init_iterations),
-        )
+        if primary:
+            model_io.save_matchpoints(
+                scene.bundle,
+                init_result.best_z,
+                scene.base_names,
+                scene.init_point_cloud_dir(extras.init_iterations),
+            )
 
     # ---- main stage (`train.py:99-212`)
     test_iterations = set(args.test_iterations)
     save_iterations = set(args.save_iterations) | {args.iterations}
     ckpt_iterations = set(args.checkpoint_iterations)
     raster = RasterizerConfig()
-    logger = TrainLogger(args.model_path, use_tensorboard=not args.no_tensorboard)
+    # only process 0 writes logs and artifacts: the replicas are equal
+    logger = TrainLogger(args.model_path, use_tensorboard=primary and not args.no_tensorboard,
+                         enabled=primary)
 
     # live SIBR viewer (polled every iteration, `train.py:109-122`)
     gui = None
@@ -289,7 +340,7 @@ def main(argv=None):
                 f"[{iteration}] loss {ema['loss']:.5f} visible {rec['visible']} "
                 f"({timer.rays_per_s/1e6:.2f} Mrays/s)"
             )
-        if iteration in test_iterations:
+        if iteration in test_iterations and primary:
             if scene.test_cameras:
                 l1t, pt = evaluate(model, scene.test_cameras, "test", iteration, raster)
                 logger.eval("test", l1t, pt, iteration)
@@ -297,12 +348,12 @@ def main(argv=None):
             logger.eval("train", l1t, pt, iteration)
             logger.histogram("scene/opacity_histogram", model.get_opacity(), iteration)
             logger.scalar("total_points", int(model.alive_mask().sum()), iteration)
-        if iteration in save_iterations:
+        if iteration in save_iterations and primary:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             model_io.save_ply(
                 model, os.path.join(scene.point_cloud_dir(iteration), "point_cloud.ply")
             )
-        if iteration in ckpt_iterations and opt_state is not None:
+        if iteration in ckpt_iterations and opt_state is not None and primary:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
             model_io.save_checkpoint(
                 os.path.join(args.model_path, f"chkpnt{iteration}.npz"),
@@ -310,6 +361,12 @@ def main(argv=None):
             )
         timer.start()
 
+    group = None
+    if multihost:
+        group = dp.make_group(args.data_parallel)
+        dp.broadcast_model(group, model)  # the replicas start equal
+        print(f"Data-parallel training over {args.data_parallel} ranks "
+              f"({args.data_parallel} cameras per iteration)")
     try:
         with trace(args.profile_dir):
             state = pipeline.run_main_stage(
@@ -330,19 +387,41 @@ def main(argv=None):
                 first_iteration=first_iter,
                 opt_state=restored_opt,
                 generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
+                group=group,
+            )
+        if primary:
+            model_io.save_checkpoint(
+                os.path.join(args.model_path, f"chkpnt{args.iterations}.npz"),
+                state.model,
+                state.opt_state,
+                args.iterations,
             )
     finally:
         if gui is not None:
             gui.close()
-    model_io.save_checkpoint(
-        os.path.join(args.model_path, f"chkpnt{args.iterations}.npz"),
-        state.model,
-        state.opt_state,
-        args.iterations,
-    )
+        if multihost:
+            hosts.shutdown()
     logger.close()
     print("\nTraining complete.")
     return state
+
+
+def _local_rank(rank: int, argv: list, port: int, world: int) -> None:
+    main(argv + ["--coordinator_address", f"127.0.0.1:{port}", "--num_processes", str(world),
+                 "--process_id", str(rank)])
+
+
+def launch_local_ranks(argv: list, world: int) -> None:
+    """`--data_parallel D` without `--multihost`: D processes of this CLI
+    on this host, each joining a D-rank group over a free local port as a
+    `--multihost` rank. Returns when every rank has finished; raises if
+    one failed."""
+    import torch.multiprocessing as mp
+
+    port = hosts.free_port()
+    print(f"Starting {world} local ranks (127.0.0.1:{port})")
+    mp.start_processes(_local_rank, args=(list(argv), port, world), nprocs=world,
+                       start_method="spawn")
 
 
 if __name__ == "__main__":

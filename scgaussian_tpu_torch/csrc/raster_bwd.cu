@@ -134,12 +134,12 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
                   const int32_t* __restrict__ gauss_ids,
                   const float4* __restrict__ attrs,
                   const float* __restrict__ bg,
-                  int width, int height,
-                  const float* __restrict__ T_final,   // [H, W]
-                  const int32_t* __restrict__ last,    // [H, W]
-                  const float* __restrict__ g_color,   // [3, H, W]
-                  const float* __restrict__ g_depth,   // [H, W]
-                  const float* __restrict__ g_alpha,   // [H, W]
+                  int width, int height, int row_lo,  // see raster_fwd.cu
+                  const float* __restrict__ T_final,   // [R, W], R the slab's rows
+                  const int32_t* __restrict__ last,    // [R, W]
+                  const float* __restrict__ g_color,   // [3, R, W]
+                  const float* __restrict__ g_depth,   // [R, W]
+                  const float* __restrict__ g_alpha,   // [R, W]
                   float* __restrict__ d_out,           // zeroed, see kPerEntry
                   const int64_t* __restrict__ entry_dst)  // [E], see kPerEntry
 {
@@ -154,7 +154,7 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
   const int lane = t & 31;
   const int warp = t >> 5;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  const int x0 = blockIdx.x * kTile, y0 = (row_lo + blockIdx.y) * kTile;
   const int px = x0 + local_x(t);
   const int py0 = y0 + local_y0(t);
   const float fx = static_cast<float>(px);
@@ -163,7 +163,8 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
   float T[kP], tail[kP], gr[kP], gg[kP], gb[kP], gd[kP];
   int my_last[kP];
   int thread_last = 0;
-  const int hw = width * height;
+  const int slab_y0 = row_lo * kTile;
+  const int hw = width * (min((row_lo + static_cast<int>(gridDim.y)) * kTile, height) - slab_y0);
 #pragma unroll
   for (int k = 0; k < kP; ++k) {
     T[k] = 1.0f;
@@ -171,7 +172,7 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
     my_last[k] = 0;
     const int py = py0 + k;
     if (px < width && py < height) {
-      const int p = py * width + px;
+      const int p = (py - slab_y0) * width + px;
       T[k] = T_final[p];
       my_last[k] = last[p];
       gr[k] = g_color[p];
@@ -342,15 +343,16 @@ raster_bwd_kernel(const int32_t* __restrict__ tile_starts,
 
 template <bool kPerEntry>
 int launch(const void* tile_starts, const void* gauss_ids, const void* attrs,
-           const void* bg, int width, int height, const void* T_final,
-           const void* last, const void* g_color, const void* g_depth,
-           const void* g_alpha, void* d_out, const void* entry_dst, void* stream) {
-  const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
+           const void* bg, int width, int height, int row_lo, int ny_rows,
+           const void* T_final, const void* last, const void* g_color,
+           const void* g_depth, const void* g_alpha, void* d_out,
+           const void* entry_dst, void* stream) {
+  const dim3 grid((width + kTile - 1) / kTile, ny_rows);
   raster_bwd_kernel<kPerEntry><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tile_starts),
       static_cast<const int32_t*>(gauss_ids),
       static_cast<const float4*>(attrs), static_cast<const float*>(bg),
-      width, height, static_cast<const float*>(T_final),
+      width, height, row_lo, static_cast<const float*>(T_final),
       static_cast<const int32_t*>(last), static_cast<const float*>(g_color),
       static_cast<const float*>(g_depth), static_cast<const float*>(g_alpha),
       static_cast<float*>(d_out), static_cast<const int64_t*>(entry_dst));
@@ -359,31 +361,32 @@ int launch(const void* tile_starts, const void* gauss_ids, const void* attrs,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). The output must be zeroed by
-// the caller: `d_attrs` [N, 12] (16-B aligned rows) for `raster_bwd`,
+// Plain C entry points (loaded with ctypes). Each takes the tile rows
+// [row_lo, row_lo + ny_rows) of its bins and the slab's per-pixel inputs, as
+// raster_fwd does. The output must be zeroed by the caller: `d_attrs` [N, 12] (16-B aligned rows) for `raster_bwd`,
 // `d_entries` [E, 10] for `raster_bwd_entries`, whose `entry_dst` [E] int64
 // (a permutation of the rows) says where entry e's row goes. Each launches
 // on `stream`, never synchronises, and returns cudaGetLastError() (0 on
 // success).
 extern "C" int raster_bwd(const void* tile_starts, const void* gauss_ids,
                           const void* attrs, const void* bg,
-                          int width, int height,
+                          int width, int height, int row_lo, int ny_rows,
                           const void* T_final, const void* last,
                           const void* g_color, const void* g_depth,
                           const void* g_alpha, void* d_attrs, void* stream) {
-  return launch<false>(tile_starts, gauss_ids, attrs, bg, width, height, T_final,
-                       last, g_color, g_depth, g_alpha, d_attrs, nullptr, stream);
+  return launch<false>(tile_starts, gauss_ids, attrs, bg, width, height, row_lo, ny_rows,
+                       T_final, last, g_color, g_depth, g_alpha, d_attrs, nullptr, stream);
 }
 
 extern "C" int raster_bwd_entries(const void* tile_starts, const void* gauss_ids,
                                   const void* attrs, const void* bg,
-                                  int width, int height,
+                                  int width, int height, int row_lo, int ny_rows,
                                   const void* T_final, const void* last,
                                   const void* g_color, const void* g_depth,
                                   const void* g_alpha, void* d_entries,
                                   const void* entry_dst, void* stream) {
-  return launch<true>(tile_starts, gauss_ids, attrs, bg, width, height, T_final,
-                      last, g_color, g_depth, g_alpha, d_entries, entry_dst, stream);
+  return launch<true>(tile_starts, gauss_ids, attrs, bg, width, height, row_lo, ny_rows,
+                      T_final, last, g_color, g_depth, g_alpha, d_entries, entry_dst, stream);
 }
 
 // Resident blocks per SM of either epilogue's kernel, stored in `blocks`;

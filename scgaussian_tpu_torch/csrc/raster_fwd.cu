@@ -45,6 +45,14 @@
 //
 // The power test follows the oracle (power > 0 skips), not the TPU kernel's
 // power <= 1e-4 (tile_raster.py:296, 573).
+//
+// Tile-row slices (the tile-row sharding of parallel/tiles.py, as the TPU
+// kernel's `_chunk_tiles_global`, tile_raster.py:980-996): the grid covers
+// the `ny_rows` tile rows from `row_lo`, whose bins hold slice-local tile ids;
+// each tile works at its global pixel coordinates, so its arithmetic is the
+// unsharded launch's, and the outputs are the slab of image rows
+// [row_lo * 16, min((row_lo + ny_rows) * 16, height)). row_lo = 0 with every
+// tile row is the whole image.
 
 #include "raster_common.cuh"
 
@@ -64,12 +72,12 @@ raster_fwd_kernel(const int32_t* __restrict__ tile_starts,
                   const int32_t* __restrict__ gauss_ids,
                   const float4* __restrict__ attrs,
                   const float* __restrict__ bg,
-                  int width, int height,
-                  float* __restrict__ out_color,   // [3, H, W]
-                  float* __restrict__ out_depth,   // [H, W]
-                  float* __restrict__ out_alpha,   // [H, W]
-                  float* __restrict__ out_T,       // [H, W]
-                  int32_t* __restrict__ out_last)  // [H, W]
+                  int width, int height, int row_lo,
+                  float* __restrict__ out_color,   // [3, R, W], R the slab's rows
+                  float* __restrict__ out_depth,   // [R, W]
+                  float* __restrict__ out_alpha,   // [R, W]
+                  float* __restrict__ out_T,       // [R, W]
+                  int32_t* __restrict__ out_last)  // [R, W]
 {
   __shared__ float4 s_a[2][kBatch];
   __shared__ float4 s_b[2][kBatch];
@@ -78,7 +86,7 @@ raster_fwd_kernel(const int32_t* __restrict__ tile_starts,
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  const int x0 = blockIdx.x * kTile, y0 = (row_lo + blockIdx.y) * kTile;
   const int px = x0 + local_x(t);
   const int py0 = y0 + local_y0(t);
   const float fx = static_cast<float>(px);
@@ -175,12 +183,13 @@ raster_fwd_kernel(const int32_t* __restrict__ tile_starts,
   }
   __pipeline_wait_prior(0);  // no copy may land after the block has left
 
-  const int hw = width * height;
+  const int slab_y0 = row_lo * kTile;
+  const int hw = width * (min((row_lo + static_cast<int>(gridDim.y)) * kTile, height) - slab_y0);
 #pragma unroll
   for (int k = 0; k < kP; ++k) {
     const int py = py0 + k;
     if (px < width && py < height) {
-      const int p = py * width + px;
+      const int p = (py - slab_y0) * width + px;
       out_color[p] = C0[k] + T[k] * bg[0];
       out_color[hw + p] = C1[k] + T[k] * bg[1];
       out_color[2 * hw + p] = C2[k] + T[k] * bg[2];
@@ -194,21 +203,22 @@ raster_fwd_kernel(const int32_t* __restrict__ tile_starts,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). `raster_fwd` launches on
-// `stream`, never synchronises, and returns cudaGetLastError() (0 on
-// success). `raster_fwd_occupancy` stores the kernel's resident blocks per
+// Plain C entry points (loaded with ctypes). `raster_fwd` composites the
+// tile rows [row_lo, row_lo + ny_rows) (all of them: 0 and
+// ceil(height / 16)) into the slab's outputs, launches on `stream`, never
+// synchronises, and returns cudaGetLastError() (0 on success). `raster_fwd_occupancy` stores the kernel's resident blocks per
 // SM in `blocks` and returns the CUDA error code.
 extern "C" int raster_fwd(const void* tile_starts, const void* gauss_ids,
                           const void* attrs, const void* bg,
-                          int width, int height,
+                          int width, int height, int row_lo, int ny_rows,
                           void* out_color, void* out_depth, void* out_alpha,
                           void* out_T, void* out_last, void* stream) {
-  const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
+  const dim3 grid((width + kTile - 1) / kTile, ny_rows);
   raster_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tile_starts),
       static_cast<const int32_t*>(gauss_ids),
       static_cast<const float4*>(attrs), static_cast<const float*>(bg),
-      width, height, static_cast<float*>(out_color),
+      width, height, row_lo, static_cast<float*>(out_color),
       static_cast<float*>(out_depth), static_cast<float*>(out_alpha),
       static_cast<float*>(out_T), static_cast<int32_t*>(out_last));
   return static_cast<int>(cudaGetLastError());

@@ -30,6 +30,16 @@ stores each entry's gradient row at `order[e]`
 (`raster.raster_bwd_entries`) and sums the runs
 of `gmaj_starts` (`raster.route_by_sort`), without a second sort and
 without a reordered copy.
+
+`row_lo`/`ny_rows` restrict the bins to tile rows [row_lo, row_lo +
+ny_rows), the tile-row sharding hook of `parallel/tiles.py` (the JAX
+package's `bin_gaussians(row_lo, ny_rows)`): only entries that touch those
+rows are made, tile ids are local to the slice and `TileBins.row_lo`
+records the offset. Each local tile's entries and their order are those of
+the same tile in the unrestricted bins (the same stable sort on the same
+depths, ties by Gaussian index), so each tile composites to the same bits.
+The slice may run past the image's last tile row (rows padded to a
+multiple of the shard count); those rows are empty.
 """
 
 from __future__ import annotations
@@ -49,10 +59,12 @@ class TileBins:
     gauss_ids: torch.Tensor  # [L] int32 Gaussian index per entry
     tile_starts: torch.Tensor  # [T + 1] int32
     nx: int  # tiles per row
-    ny: int  # tile rows
+    ny: int  # tile rows of these bins (the slice's, when restricted)
     gmaj_ids: torch.Tensor  # [L] int32 Gaussian per Gaussian-major slot, non-decreasing
     gmaj_starts: torch.Tensor  # [N + 1] int32: Gaussian g's Gaussian-major slots start here
     order: torch.Tensor  # [L] int64: sorted slot -> Gaussian-major slot
+    row_lo: int  # the first tile row of these bins in the image's grid
+    grid_ny: int  # tile rows of the image's whole grid
 
     @property
     def num_entries(self) -> int:
@@ -68,16 +80,29 @@ def default_entry_budget(n: int, ptile_factor: int = 1) -> int:
 
 
 def bin_gaussians(
-    proj: ProjectedGaussians, width: int, height: int, tile: int = 16
+    proj: ProjectedGaussians, width: int, height: int, tile: int = 16,
+    row_lo: int | None = None, ny_rows: int | None = None,
 ) -> TileBins:
     nx = (width + tile - 1) // tile
-    ny = (height + tile - 1) // tile
+    grid_ny = (height + tile - 1) // tile
+    if row_lo is None:
+        row_lo, ny = 0, grid_ny
+    elif ny_rows is None or ny_rows < 1 or row_lo < 0:
+        raise ValueError(f"row_lo {row_lo} needs ny_rows >= 1 and row_lo >= 0, got {ny_rows}")
+    else:
+        ny = ny_rows
     num_tiles = nx * ny
     dev = proj.depth.device
     with torch.no_grad():
         rect_min, rect_max = tile_rect(
             proj.mean2d, proj.ext[:, 0], width, height, tile, radius_y=proj.ext[:, 1]
         )
+        if row_lo or ny != grid_ny:
+            # the rect's rows clamped to the slice, relabelled locally
+            lo = torch.tensor([0, row_lo], dtype=rect_min.dtype, device=dev)
+            hi = torch.tensor([nx, row_lo + ny], dtype=rect_min.dtype, device=dev)
+            rect_min = torch.minimum(torch.maximum(rect_min, lo), hi) - lo
+            rect_max = torch.minimum(torch.maximum(rect_max, lo), hi) - lo
         span = rect_max - rect_min  # [N, 2] tiles covered per axis
         cov = span[:, 0] * span[:, 1]
         # CUDA duplicates only Gaussians with radius > 0
@@ -111,4 +136,6 @@ def bin_gaussians(
         gmaj_ids=gid,
         gmaj_starts=gmaj_starts,
         order=order,
+        row_lo=row_lo,
+        grid_ny=grid_ny,
     )

@@ -24,6 +24,16 @@ backward epilogues count as "raster_bwd", both segment-sum forms as
 in PyTorch ops. There is no other fallback: a CUDA tensor never reaches a
 plain version through a wrapper, and a build or launch failure raises.
 `rasterize` is differentiable through `RasterizeFn`.
+
+Bins restricted to a slice of tile rows (`bin_gaussians(row_lo, ny_rows)`,
+the tile-row sharding of `parallel/tiles.py`) composite that slice alone,
+as the TPU kernels do through `_chunk_tiles_global` and
+`stream_gather_composite(..., ny_total)` (`tile_raster.py:980-1011`): the
+kernels' grid covers the slice's tiles, each tile works at its global
+pixel coordinates, and every image a wrapper returns or takes is the
+slab of image rows [row_lo * 16, min((row_lo + ny_rows) * 16, H))
+(`slab_rows`). Unrestricted bins are the slice of every row: the slab is
+the whole image. `rasterize_rows` is the differentiable slice.
 """
 
 from __future__ import annotations
@@ -86,6 +96,13 @@ def pack_attrs(proj: ProjectedGaussians) -> torch.Tensor:
     return torch.stack(cols, dim=1).to(torch.float32).contiguous()
 
 
+def slab_rows(bins: TileBins, height: int) -> int:
+    """The number of image rows in the slab that `bins`' tile rows cover in
+    an image `height` pixels tall, [row_lo * 16, min((row_lo + ny) * 16,
+    height)): 0 past the image's last row."""
+    return max(0, min((bins.row_lo + bins.ny) * TILE, height) - bins.row_lo * TILE)
+
+
 def _check_inputs(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                   width: int, height: int) -> None:
     dev = attrs.device
@@ -107,17 +124,20 @@ def _check_inputs(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         raise ValueError(f"bg must be [3], got {tuple(bg.shape)}")
     nx = (width + TILE - 1) // TILE
     ny = (height + TILE - 1) // TILE
-    if (bins.nx, bins.ny) != (nx, ny) or bins.tile_starts.shape != (nx * ny + 1,):
-        raise ValueError(f"bins are for a {bins.nx}x{bins.ny} grid, image needs {nx}x{ny}")
+    if (bins.nx, bins.grid_ny) != (nx, ny) or bins.tile_starts.shape != (nx * bins.ny + 1,):
+        raise ValueError(f"bins are for a {bins.nx}x{bins.grid_ny} grid, image needs {nx}x{ny}")
+    if bins.row_lo < 0 or bins.ny < 1:
+        raise ValueError(f"bins' tile rows [{bins.row_lo}, {bins.row_lo + bins.ny}) are empty")
 
 
 def raster_fwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                width: int, height: int) -> RasterOut:
     """Composite every tile's entries front to back.
 
-    Returns (color [3, H, W], depth [H, W], alpha [H, W], final T [H, W],
-    last contributor [H, W] int32: 1-based position in the tile's range of
-    the last entry that blended, 0 if none).
+    Returns (color [3, R, W], depth [R, W], alpha [R, W], final T [R, W],
+    last contributor [R, W] int32: 1-based position in the tile's range of
+    the last entry that blended, 0 if none), R the rows of the bins' slab
+    (`slab_rows`; H for unrestricted bins).
 
     The kernel's outputs carry no autograd history: to differentiate, call
     `rasterize` (or `RasterizeFn`), whose backward is `raster_bwd`. On the
@@ -137,7 +157,7 @@ def _raster_fwd_fn():
     """The kernel's C entry point with its signature set, built and loaded
     on first use."""
     fn = _build.load("raster_fwd").raster_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     return fn
 
@@ -145,17 +165,18 @@ def _raster_fwd_fn():
 def _raster_fwd_cuda(bins, attrs, bg, width, height) -> RasterOut:
     fn = _raster_fwd_fn()
     dev = attrs.device
+    rows = slab_rows(bins, height)
     with torch.cuda.device(dev):
         f32 = dict(dtype=torch.float32, device=dev)
-        color = torch.empty(3, height, width, **f32)
-        depth = torch.empty(height, width, **f32)
-        alpha = torch.empty(height, width, **f32)
-        T = torch.empty(height, width, **f32)
-        last = torch.empty(height, width, dtype=torch.int32, device=dev)
+        color = torch.empty(3, rows, width, **f32)
+        depth = torch.empty(rows, width, **f32)
+        alpha = torch.empty(rows, width, **f32)
+        T = torch.empty(rows, width, **f32)
+        last = torch.empty(rows, width, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             bins.tile_starts.data_ptr(), bins.gauss_ids.data_ptr(),
-            attrs.data_ptr(), bg.data_ptr(), width, height,
+            attrs.data_ptr(), bg.data_ptr(), width, height, bins.row_lo, bins.ny,
             color.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
             T.data_ptr(), last.data_ptr(), stream,
         )
@@ -165,12 +186,13 @@ def _raster_fwd_cuda(bins, attrs, bg, width, height) -> RasterOut:
     return color, depth, alpha, T, last
 
 
-def _tile_pixels(nx: int, ny: int, dev: torch.device):
-    """Pixel x, y (float32, [tiles, 256]) of every tile's threads."""
+def _tile_pixels(nx: int, ny: int, dev: torch.device, row_lo: int = 0):
+    """Pixel x, y (float32, [tiles, 256], image coordinates) of every tile's
+    threads, for the tile rows [row_lo, row_lo + ny)."""
     lidx = torch.arange(TILE * TILE, device=dev)
     tid = torch.arange(nx * ny, device=dev)
     px = ((tid % nx)[:, None] * TILE + lidx % TILE).to(torch.float32)
-    py = ((tid // nx)[:, None] * TILE + lidx // TILE).to(torch.float32)
+    py = ((tid // nx + row_lo)[:, None] * TILE + lidx // TILE).to(torch.float32)
     return px, py
 
 
@@ -221,13 +243,14 @@ def _warps(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(t, (TILE // fy) * (TILE // fx), fx * fy)
 
 
-def _warp_reach(rect: torch.Tensor, nx: int) -> torch.Tensor:
+def _warp_reach(rect: torch.Tensor, nx: int, row_lo: int) -> torch.Tensor:
     """[T, 4] rects (`entry_cull_rect`) of each tile's current entry ->
-    [T, 4] bool: the warps whose footprint the cull lets the entry reach."""
+    [T, 4] bool: the warps whose footprint the cull lets the entry reach
+    (tile rows from `row_lo`)."""
     fx, fy = WARP_FOOT
     tid = torch.arange(rect.shape[0], device=rect.device)
     x0 = ((tid % nx) * TILE).to(torch.float64)
-    y0 = ((tid // nx) * TILE).to(torch.float64)
+    y0 = ((tid // nx + row_lo) * TILE).to(torch.float64)
     wid = torch.arange((TILE // fx) * (TILE // fy), device=rect.device)
     wx0 = ((wid % (TILE // fx)) * fx).to(torch.float64)
     wy0 = ((wid // (TILE // fx)) * fy).to(torch.float64)
@@ -268,7 +291,8 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     starts = bins.tile_starts[:-1].to(torch.int64)
     counts = bins.tile_starts[1:].to(torch.int64) - starts
 
-    px, py = _tile_pixels(nx, ny, dev)  # [T, 256]
+    rows = slab_rows(bins, height)
+    px, py = _tile_pixels(nx, ny, dev, bins.row_lo)  # [T, 256]
     inside = (px < width) & (py < height)
 
     T = torch.ones(num_tiles, TILE * TILE, dtype=torch.float32, device=dev)
@@ -295,7 +319,7 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         if stats is not None:
             needs = active & ~done
             pairs += needs.sum()
-            warp_counts += _warp_counts(needs, live, _warp_reach(rect[g], nx))
+            warp_counts += _warp_counts(needs, live, _warp_reach(rect[g], nx, bins.row_lo))
         T_new = T * (1.0 - alpha)
         ok = live & (T_new >= T_EPS)
         done = done | (live & (T_new < T_EPS))
@@ -307,10 +331,10 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         if k % 32 == 31 and bool((done | ~active).all()):
             break
 
-    def image(x):  # [..., T, 256] -> [..., H, W], contiguous as the kernel's outputs
+    def image(x):  # [..., T, 256] -> [..., R, W], contiguous as the kernel's outputs
         lead = x.shape[:-2]
         x = x.reshape(*lead, ny, nx, TILE, TILE).movedim(-2, -3)
-        return x.reshape(*lead, ny * TILE, nx * TILE)[..., :height, :width].contiguous()
+        return x.reshape(*lead, ny * TILE, nx * TILE)[..., :rows, :width].contiguous()
 
     if stats is not None:
         stats["pairs"] = int(pairs)
@@ -319,15 +343,16 @@ def raster_fwd_plain(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     return color, image(D), image(1.0 - T), image(T), image(last)
 
 
-def _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha,
+def _check_bwd_inputs(bins, attrs, T_final, last, g_color, g_depth, g_alpha,
                       width: int, height: int) -> None:
     dev = attrs.device
+    rows = slab_rows(bins, height)
     for name, t, dtype, shape in (
-        ("T_final", T_final, torch.float32, (height, width)),
-        ("last", last, torch.int32, (height, width)),
-        ("g_color", g_color, torch.float32, (3, height, width)),
-        ("g_depth", g_depth, torch.float32, (height, width)),
-        ("g_alpha", g_alpha, torch.float32, (height, width)),
+        ("T_final", T_final, torch.float32, (rows, width)),
+        ("last", last, torch.int32, (rows, width)),
+        ("g_color", g_color, torch.float32, (3, rows, width)),
+        ("g_depth", g_depth, torch.float32, (rows, width)),
+        ("g_alpha", g_alpha, torch.float32, (rows, width)),
     ):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, attrs on {dev}")
@@ -344,15 +369,15 @@ def raster_bwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                g_depth: torch.Tensor, g_alpha: torch.Tensor,
                width: int, height: int) -> torch.Tensor:
     """Gradients of the packed attribute rows from the cotangents of
-    `raster_fwd`'s color [3, H, W], depth [H, W] and alpha [H, W], given the
-    forward's final T and last contributor.
+    `raster_fwd`'s color [3, R, W], depth [R, W] and alpha [R, W], given the
+    forward's final T and last contributor (the bins' slab of R rows).
 
     Returns d_attrs [N, 12] float32: columns 0-9 mean x/y, conic a/b/c,
     opacity, rgb, depth; columns 10-11 zero. CUDA's conventions: the 0.99
     alpha cap is ignored, dead entries and entries past a pixel's last
     contributor get nothing."""
     _check_inputs(bins, attrs, bg, width, height)
-    _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
+    _check_bwd_inputs(bins, attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
     if attrs.device.type == "cpu":
         return raster_bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth,
                                 g_alpha, width, height)
@@ -368,7 +393,7 @@ def _raster_bwd_fn(entry: str):
     with the rows' destinations)."""
     fn = getattr(_build.load("raster_bwd"), entry)
     pointers = 8 if entry == "raster_bwd_entries" else 7
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * pointers
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * pointers
     fn.restype = ctypes.c_int
     return fn
 
@@ -387,7 +412,7 @@ def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             bins.tile_starts.data_ptr(), bins.gauss_ids.data_ptr(),
-            attrs.data_ptr(), bg.data_ptr(), width, height,
+            attrs.data_ptr(), bg.data_ptr(), width, height, bins.row_lo, bins.ny,
             T_final.data_ptr(), last.data_ptr(), g_color.data_ptr(),
             g_depth.data_ptr(), g_alpha.data_ptr(), d_out.data_ptr(), *dst, stream,
         )
@@ -544,7 +569,7 @@ def raster_bwd_entries(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
     in the columns of `raster_bwd`, at row `bins.order[e]`. Deterministic:
     each entry belongs to one tile, so no atomics are needed."""
     _check_inputs(bins, attrs, bg, width, height)
-    _check_bwd_inputs(attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
+    _check_bwd_inputs(bins, attrs, T_final, last, g_color, g_depth, g_alpha, width, height)
     if bins.order.device != attrs.device or bins.order.dtype != torch.int64:
         raise ValueError("bins.order must be int64 on the device of attrs")
     if attrs.device.type == "cpu":
@@ -604,11 +629,12 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
     num_tiles = nx * ny
     starts = bins.tile_starts[:-1].to(torch.int64)
     counts_t = bins.tile_starts[1:].to(torch.int64) - starts
-    px, py = _tile_pixels(nx, ny, dev)
+    rows = slab_rows(bins, height)
+    px, py = _tile_pixels(nx, ny, dev, bins.row_lo)
 
-    def tiles(x, fill):  # [..., H, W] -> [..., T, 256], padding with `fill`
+    def tiles(x, fill):  # [..., R, W] -> [..., T, 256], padding with `fill`
         lead = x.shape[:-2]
-        x = F.pad(x, (0, nx * TILE - width, 0, ny * TILE - height), value=fill)
+        x = F.pad(x, (0, nx * TILE - width, 0, ny * TILE - rows), value=fill)
         x = x.reshape(*lead, ny, TILE, nx, TILE).movedim(-3, -2)
         return x.reshape(*lead, num_tiles, TILE * TILE)
 
@@ -642,7 +668,7 @@ def _bwd_plain(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
         if stats is not None:
             near = active & (power <= 0.0)
             counts += torch.stack([live.sum(), (near & ~live).sum(), (active & ~near).sum()])
-            warp_counts += _warp_counts(active, live, _warp_reach(rect[g], nx))
+            warp_counts += _warp_counts(active, live, _warp_reach(rect[g], nx, bins.row_lo))
         one_m = 1.0 - alpha
         T_before = torch.where(live, T / one_m, T)
         w = torch.where(live, alpha * T_before, zero)
@@ -700,15 +726,16 @@ class RasterizeFn(torch.autograd.Function):
     def backward(ctx, g_color, g_depth, g_alpha):
         attrs, bg, T, last = ctx.saved_tensors
         width, height = ctx.size
+        rows = T.shape[0]
 
         def cot(g, *shape):
             if g is None:
                 return torch.zeros(*shape, dtype=torch.float32, device=attrs.device)
             return g.to(torch.float32).contiguous()
 
-        g_color = cot(g_color, 3, height, width)
-        args = (ctx.bins, attrs, bg, T, last, g_color, cot(g_depth, height, width),
-                cot(g_alpha, height, width), width, height)
+        g_color = cot(g_color, 3, rows, width)
+        args = (ctx.bins, attrs, bg, T, last, g_color, cot(g_depth, rows, width),
+                cot(g_alpha, rows, width), width, height)
         if ctx.by_sort:
             d_attrs = route_by_sort(ctx.bins, raster_bwd_entries(*args), attrs.shape[0])
         else:
@@ -734,6 +761,36 @@ def rasterize(
         raise ValueError(f"the tile rasterizer works on {TILE}-px tiles, got {tile}")
     bins = bin_gaussians(proj, width, height, TILE)
     attrs = pack_attrs(proj)
+    bg = bg_color.to(device=attrs.device, dtype=torch.float32).contiguous()
+    by_sort = sort_route(attrs.shape[0], width, height, config)
+    color, depth, alpha = RasterizeFn.apply(attrs, bg, bins, width, height, by_sort)
+    return color, depth[None], alpha[None]
+
+
+def rasterize_rows(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    bg_color: torch.Tensor,
+    row_lo: int,
+    ny_rows: int,
+    config: RasterizerConfig = RasterizerConfig(),
+    attrs: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`rasterize` restricted to the tile rows [row_lo, row_lo + ny_rows):
+    bins of that slice only, composited at the slice's global pixel
+    coordinates. Returns the slab of image rows (`slab_rows`): color [3, R,
+    W], depth [1, R, W], alpha [1, R, W], each pixel bitwise `rasterize`'s.
+    Differentiable: the backward gives every attribute row its gradient
+    from this slab alone (the route as `rasterize` picks it for the whole
+    image), so the slabs' gradients add up to the image's. `attrs` (the
+    packed rows of `proj`, `pack_attrs`) may be passed in, to carry
+    gradients through a tensor of the caller's."""
+    if config.tile != TILE:
+        raise ValueError(f"the tile rasterizer works on {TILE}-px tiles, got {config.tile}")
+    bins = bin_gaussians(proj, width, height, TILE, row_lo=row_lo, ny_rows=ny_rows)
+    if attrs is None:
+        attrs = pack_attrs(proj)
     bg = bg_color.to(device=attrs.device, dtype=torch.float32).contiguous()
     by_sort = sort_route(attrs.shape[0], width, height, config)
     color, depth, alpha = RasterizeFn.apply(attrs, bg, bins, width, height, by_sort)

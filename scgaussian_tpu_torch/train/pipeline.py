@@ -6,8 +6,8 @@ match-prior depths, the promoted matches become the hybrid model
 (`create_from_pcd` analog), stage 2 runs `train_step` with the densify /
 prune / opacity-reset schedule and the background-capacity guard.
 
-Differences from the JAX pipeline:
-- no `mesh` (data-parallel training is a later slice);
+A process group (`group`) stands where the JAX pipeline takes a `mesh`
+(`parallel/dp.py`). Differences from the JAX pipeline:
 - no entry-budget overflow guard: the CUDA path sizes its tile entries per
   frame and never truncates, so there is nothing to regrow. The budget
   rule lives on only as the backward's route (`raster.sort_route`), decided
@@ -23,12 +23,14 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scgaussian_tpu_torch.config import OptimizationConfig, RasterizerConfig, TrainExtras
 from scgaussian_tpu_torch.core.cameras import Camera
 from scgaussian_tpu_torch.model import matches as matches_mod
 from scgaussian_tpu_torch.model.densify import densify_and_prune, grow_bg_capacity, reset_opacity
 from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, GaussianModel, create_model
+from scgaussian_tpu_torch.parallel import dp as dp_mod
 from scgaussian_tpu_torch.train import optim
 from scgaussian_tpu_torch.train.main_stage import train_step
 
@@ -95,6 +97,7 @@ def run_main_stage(
     first_iteration: int = 0,
     opt_state: Optional[optim.AdamState] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> TrainState:
     """Main optimization loop (`train.py:99-212`).
 
@@ -105,13 +108,31 @@ def run_main_stage(
     degree bump every 1,000 iterations. `generator` draws the split noise.
     Resume by passing `first_iteration` and the restored `opt_state`.
     `callback(iteration, model, metrics, opt_state=..., raster=...)` runs
-    after each iteration."""
+    after each iteration.
+
+    `group` (a process group, `parallel.dp.make_group`) switches every step
+    to `dp_train_step`: each iteration pops D = the group's size cameras off
+    the same seeded stack on every rank, and rank r trains on the r-th;
+    the cameras must share one image size. The replicas must start equal
+    (`dp.broadcast_model`); the maintenance (densify and prune with the
+    capacity guard, the opacity reset, the SH bump, the callback) then runs
+    identically on each, with split noise from identically seeded
+    generators, so they stay equal. One iteration consumes D cameras
+    instead of 1; a group of one is the single-device loop."""
     iterations = iterations or opt_cfg.iterations
     dev = model.zval.device
     bg_color = torch.tensor([1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0],
                             device=dev)
     if opt_state is None:
         opt_state = optim.init({name: getattr(model, name) for name in PARAM_NAMES})
+
+    n_dp = 0
+    if group is not None:
+        n_dp = dist.get_world_size(group)
+        sizes = {(c.width, c.height) for c in cameras}
+        if len(sizes) != 1:
+            raise ValueError(f"data-parallel training batches cameras of one image size; "
+                             f"got {sorted(sizes)}")
 
     # random camera stack semantics (`train.py:133-135`)
     py_rng = np.random.default_rng(stack_seed)
@@ -134,12 +155,21 @@ def run_main_stage(
         else:
             bg = bg_color
 
-        cam_i = pop_camera()
-        model, opt_state, metrics = train_step(
-            model, opt_state, bundle, cameras[cam_i], gt_images[cam_i], view_ids[cam_i],
-            iteration, bg, opt_cfg, raster=raster, extras=extras, backend=backend,
-            is_dtu=is_dtu,
-        )
+        if n_dp:
+            batch = [pop_camera() for _ in range(n_dp)]
+            model, opt_state, metrics = dp_mod.dp_train_step(
+                group, model, opt_state, bundle, [cameras[i] for i in batch],
+                [gt_images[i] for i in batch], [view_ids[i] for i in batch],
+                iteration, bg, opt_cfg, raster=raster, extras=extras, backend=backend,
+                is_dtu=is_dtu,
+            )
+        else:
+            cam_i = pop_camera()
+            model, opt_state, metrics = train_step(
+                model, opt_state, bundle, cameras[cam_i], gt_images[cam_i], view_ids[cam_i],
+                iteration, bg, opt_cfg, raster=raster, extras=extras, backend=backend,
+                is_dtu=is_dtu,
+            )
 
         # densification + opacity reset schedule (`train.py:189-200`)
         if iteration < opt_cfg.densify_until_iter:

@@ -167,11 +167,24 @@ def test_train_and_render_clis_raise_without_a_gpu(scene_dir, trained, tmp_path,
     assert not os.path.exists(tmp_path / "m")
 
 
-@pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--multihost"],
-                                   ["--coordinator_address", "localhost:1234"]])
-def test_flags_of_unported_modules_exit(scene_dir, tmp_path, flags):
-    with pytest.raises(SystemExit, match="not ported"):
+@pytest.mark.parametrize("flags,message", [
+    (["--multihost", "--data_parallel", "2", "-m", ""], "requires an explicit -m"),
+    (["--multihost"], "requires --data_parallel"),
+    (["--coordinator_address", "localhost:1234", "--data_parallel", "1"],
+     "requires --data_parallel"),
+    (["--data_parallel", str(10 ** 6)], "available devices"),
+    (["--multihost", "--data_parallel", "2", "--port", "0"], "unsupported with --multihost"),
+], ids=["multihost_without_model_path", "multihost_without_data_parallel",
+        "coordinator_without_data_parallel", "more_ranks_than_devices", "viewer_with_multihost"])
+def test_parallel_flags_exit_with_the_jax_guards(scene_dir, tmp_path, flags, message):
+    """The JAX CLI's guards on `--multihost`, `--coordinator_address`,
+    `--data_parallel` and `--port` (`apps/train.py:119-124, 265-266,
+    391-412`), before the scene is read and before any process group
+    forms: nothing is written and nothing trains."""
+    with pytest.raises(SystemExit, match=message):
         t_train_app.main(["-s", scene_dir, "-m", str(tmp_path / "m"), "--device", "cpu"] + flags)
+    assert not os.path.exists(tmp_path / "m")
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------- the render CLI ----------------

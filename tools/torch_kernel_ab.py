@@ -187,6 +187,9 @@ def variant_source(v: str):
     return kind, origin, *texts
 
 
+ROW_SLICES = set()  # built libraries whose kernels take a tile-row slice
+
+
 def build(v: str):
     kind, origin, src, hdr = variant_source(v)
     d = OUT / v.replace(":", "_").replace("@", "_").replace("=", "").replace(",", "_")
@@ -200,6 +203,8 @@ def build(v: str):
                           capture_output=True, text=True)
     log = (proc.stdout + proc.stderr).splitlines()
     ptxas = [ln.strip() for ln in log if "registers" in ln or "stack" in ln]
+    if "int row_lo" in src:
+        ROW_SLICES.add(str(so))
     # this checkout's interfaces: the per-entry epilogue takes the rows'
     # destinations; the segment sum takes run starts ("gather": and src)
     if kind == "bwd":
@@ -226,12 +231,17 @@ def bind(kind: str, current: bool, so: Path):
                    (("segsum_occupancy", (), "segsum"),))
     else:
         names = ("raster_fwd",) if kind == "fwd" else ("raster_bwd", "raster_bwd_entries")
+        rows = str(so) in ROW_SLICES
         for name in names:
             f = getattr(lib, name)
             pointers = 6 if kind == "fwd" else 8 if name == "raster_bwd_entries" and current else 7
-            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * pointers
+            f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 if rows else 2)
+                          + [ctypes.c_void_p] * pointers)
             f.restype = ctypes.c_int
-            fns[name] = f
+            # a source with the tile-row slice takes (row_lo, ny_rows) after the
+            # image size: the whole image is rows [0, ceil(H / 16))
+            fns[name] = ((lambda *a, f=f: f(*a[:6], 0, (a[5] + 15) // 16, *a[6:])) if rows
+                         else f)
         queries = (("raster_fwd_occupancy", (), "raster_fwd"),
                    ("raster_bwd_occupancy", (0,), "raster_bwd"),
                    ("raster_bwd_occupancy", (1,), "raster_bwd_entries"))
