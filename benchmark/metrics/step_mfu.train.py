@@ -1,0 +1,13 @@
+"""The whole step's share of the card's fp32 peak: the sub-window's counted
+operations (`yardstick`: the pairs that change a pixel forward and
+backward, per-pixel loss, per-Gaussian projection and Adam, the match
+term) over its wall time x 67 TFLOP/s."""
+
+from benchmark.lib import yardstick
+
+
+def read(ctx):
+    t, w = ctx.get("trace"), ctx.get("launches")
+    if ctx["kind"] != "train" or not t or not w or not w["flops"]:
+        return None
+    return 100.0 * w["flops"] / (t["window_s"] * yardstick.H100_FP32_OPS_PER_S)
