@@ -1,0 +1,15 @@
+"""Host ms per main-stage iteration in the program's own `step.backward` spans
+(`torch.autograd.grad`, the backward kernel's launch on autograd's thread
+among it, and the zero fill of unused gradients) over the traced run's
+profiled sub-window, from `scgaussian_tpu_torch.utils.profiling.WINDOW`."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train" or "trace" not in ctx:
+        return None
+    try:
+        from scgaussian_tpu_torch.utils.profiling import WINDOW
+    except ImportError:
+        return None  # a program without spans and counters of its own
+    units = WINDOW.units("train.step")
+    return WINDOW.total_ms("step.backward") / units if units else None

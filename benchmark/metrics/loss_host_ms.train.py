@@ -1,0 +1,14 @@
+"""Host ms per main-stage iteration in the program's own `loss.photo` (L1 and
+SSIM) and `loss.match` (the render-depth match term) spans over the traced
+run's profiled sub-window, from `scgaussian_tpu_torch.utils.profiling.WINDOW`."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train" or "trace" not in ctx:
+        return None
+    try:
+        from scgaussian_tpu_torch.utils.profiling import WINDOW
+    except ImportError:
+        return None  # a program without spans and counters of its own
+    units = WINDOW.units("train.step")
+    return WINDOW.total_ms("loss.photo", "loss.match") / units if units else None

@@ -1,0 +1,14 @@
+"""Host ms per served view in the program's own `render.project` spans
+(covariances, SH colour, screen extents) over the traced run's profiled
+sub-window, from `scgaussian_tpu_torch.utils.profiling.WINDOW`."""
+
+
+def read(ctx):
+    if ctx["kind"] != "serve" or "trace" not in ctx:
+        return None
+    try:
+        from scgaussian_tpu_torch.utils.profiling import WINDOW
+    except ImportError:
+        return None  # a program without spans and counters of its own
+    units = WINDOW.units("render.view")
+    return WINDOW.total_ms("render.project") / units if units else None

@@ -58,6 +58,7 @@ the script fails before printing a result.
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import copy
 import ctypes
@@ -232,6 +233,34 @@ KERNELS = ("raster_fwd", "raster_bwd", "segsum")
 REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
             "raster_bwd": "scgaussian_tpu/renderer/tile_raster.py:685",
             "segsum": "scgaussian_tpu/renderer/tile_raster.py:1052"}
+
+
+class KernelLaunches(collections.abc.MutableMapping):
+    """The kernels' launch counters (`profiling.TOTALS["kernel.<name>"]`,
+    counted since import by the wrappers in `renderer/raster.py`) as a dict
+    by kernel name, which this script reads, saves and restores."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in KERNELS:
+            raise KeyError(name)
+        return profiling.TOTALS.get("kernel." + name, 0)
+
+    def __setitem__(self, name: str, value: int) -> None:
+        if name not in KERNELS:
+            raise KeyError(name)
+        profiling.TOTALS["kernel." + name] = value
+
+    def __delitem__(self, name: str) -> None:
+        raise TypeError("the kernel counters cannot be removed")
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+LAUNCHES = KernelLaunches()
 # per library: (kernel, exported occupancy query, its leading arguments)
 OCCUPANCY = {"raster_fwd": [("raster_fwd", "raster_fwd_occupancy", ())],
              "raster_bwd": [("raster_bwd", "raster_bwd_occupancy", (0,)),
@@ -505,12 +534,12 @@ def compare_kernel(name, proj, W, H, img_max, depth_max, img_mean=None, rows=Non
                                                                        ny_rows=rows[1])))
     attrs = raster.pack_attrs(proj)
     bg = torch.tensor([0.1, 0.2, 0.3], device=attrs.device)
-    before = raster.LAUNCHES["raster_fwd"]
+    before = LAUNCHES["raster_fwd"]
     k_out = raster.raster_fwd(bins, attrs, bg, W, H)
     stats = {}
     p_out = raster.raster_fwd_plain(bins, attrs, bg, W, H, stats=stats)
     torch.cuda.synchronize()
-    raster.LAUNCHES["raster_fwd"] = before  # comparison launches do not count
+    LAUNCHES["raster_fwd"] = before  # comparison launches do not count
     err = {}
     for key, a, b in zip(("image", "depth", "alpha", "T"), k_out[:4], p_out[:4]):
         d = (a - b).abs()
@@ -582,7 +611,7 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
     counts the bound prices (and the warp-entry counts) and the largest
     error."""
     bins, attrs, bg, T, last = cmp["bins"], cmp["attrs"], cmp["bg"], cmp["T"], cmp["last"]
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     cots = random_cotangents(W, T.shape[0], 1, attrs.device)  # the bins' slab of rows
     kernel, plain = ((raster.raster_bwd_entries, raster.raster_bwd_entries_plain) if per_entry
                      else (raster.raster_bwd, raster.raster_bwd_plain))
@@ -591,7 +620,7 @@ def compare_backward(name, cmp: dict, W, H, autograd: bool = False,
     counts = {}
     p = plain(bins, attrs, bg, T, last, *cots, W, H, stats=counts)
     torch.cuda.synchronize()
-    raster.LAUNCHES.update(before)  # comparison launches do not count
+    LAUNCHES.update(before)  # comparison launches do not count
     check(bool(torch.isfinite(k).all()), f"{name}: backward kernel gradients not finite")
     check(per_entry or float(k[:, 10:].abs().max()) == 0.0, f"{name}: padding columns not zero")
     errs = group_errors(k, p)
@@ -670,12 +699,12 @@ def compare_segsum(name: str, keys: torch.Tensor, vals: torch.Tensor, n: int) ->
     column, max abs error <= SEGSUM_REL_MAX * (max |plain| + 1); two
     launches bitwise equal. Raises otherwise. Comparison launches do not
     count."""
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     a = raster.segsum(keys, vals, n)
     b = raster.segsum(keys, vals, n)
     p = raster.segsum_plain(keys, vals, n)
     torch.cuda.synchronize()
-    raster.LAUNCHES.update(before)
+    LAUNCHES.update(before)
     check(bool(torch.isfinite(a).all()), f"segsum {name}: not finite")
     col_err = (a - p).abs().amax(0)
     col_max = p.abs().amax(0)
@@ -695,12 +724,12 @@ def compare_route(name: str, bins, d_gmaj: torch.Tensor, n: int) -> dict:
     version `segsum_runs_plain`: per column, max abs error <= SEGSUM_REL_MAX
     * (max |plain| + 1); padding columns zero; two launches bitwise equal,
     one launch each. Raises otherwise. Comparison launches do not count."""
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     a = raster.route_by_sort(bins, d_gmaj, n)
     b = raster.route_by_sort(bins, d_gmaj, n)
     torch.cuda.synchronize()
-    launched = raster.LAUNCHES["segsum"] - before["segsum"]
-    raster.LAUNCHES.update(before)
+    launched = LAUNCHES["segsum"] - before["segsum"]
+    LAUNCHES.update(before)
     p = raster.segsum_runs_plain(bins.gmaj_starts, d_gmaj, n, raster.ATTR_WIDTH)
     check(launched == 2, f"route {name}: {launched} segsum launches for 2 routes")
     check(bool(torch.isfinite(a).all()), f"route {name}: not finite")
@@ -759,15 +788,15 @@ def compare_routes(name: str, bins, attrs, bg, W, H, cots) -> dict:
     reorder the latter's sums); two sort-route runs bitwise equal (no
     atomics anywhere on it). Raises otherwise; comparison launches do not
     count."""
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     by_sort = route_grads(bins, attrs, bg, W, H, cots, True)
     again = route_grads(bins, attrs, bg, W, H, cots, True)
     with torch.no_grad():
         _, _, _, T, last = raster.raster_fwd(bins, attrs, bg, W, H)
         atomic = raster.raster_bwd(bins, attrs, bg, T, last, *cots, W, H)
     torch.cuda.synchronize()
-    launched = {k: raster.LAUNCHES[k] - before[k] for k in raster.LAUNCHES}
-    raster.LAUNCHES.update(before)
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    LAUNCHES.update(before)
     check(launched == {"raster_fwd": 3, "raster_bwd": 3, "segsum": 2},
           f"{name}: route comparison launched {launched}")
     check(bool(torch.isfinite(by_sort).all()), f"{name}: sort-route gradients not finite")
@@ -889,10 +918,10 @@ def serving_phases(dev, root) -> dict:
               f"PLY round trip changed {name}")
     cams = view_cameras(W1, H1, VIEWS, dev)
     bg = torch.tensor([0.0, 0.0, 0.0], device=dev)
-    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     outs = [render_model(cam, model, bg, raster=RasterizerConfig()) for cam in cams]
     torch.cuda.synchronize()
-    launches = dict(raster.LAUNCHES)
+    launches = dict(LAUNCHES)
     for i, out in enumerate(outs):
         check(tuple(out.render.shape) == (3, H1, W1), f"view {i}: image shape")
         check(tuple(out.rendered_depth.shape) == (1, H1, W1), f"view {i}: depth shape")
@@ -941,7 +970,7 @@ def serving_phases(dev, root) -> dict:
     emit("kernel_time", kernel="raster_bwd", scene="main_path_view0", kernel_ms=bwd_t,
          plain=bwd_plain_t, bound_ms=bwd_bound, bound_by=bwd_bound_by,
          entries=bins.num_entries, **main_bwd["counts"])
-    raster.LAUNCHES.update(launches)  # timing launches do not count
+    LAUNCHES.update(launches)  # timing launches do not count
 
     render_breakdown("main_path_hybrid", cams[0], model, bg)
     return {
@@ -959,7 +988,7 @@ def serving_phases(dev, root) -> dict:
 
 def render_breakdown(name, cam, mdl, bg) -> None:
     W_, H_ = cam.width, cam.height
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     proj = project_model(cam, mdl)
     b = bin_gaussians(proj, W_, H_)
     a = raster.pack_attrs(proj)
@@ -972,7 +1001,7 @@ def render_breakdown(name, cam, mdl, bg) -> None:
     }
     host = host_times(lambda: render_model(cam, mdl, bg))
     busy = device_busy(lambda: render_model(cam, mdl, bg))
-    raster.LAUNCHES.update(before)  # timing launches do not count
+    LAUNCHES.update(before)  # timing launches do not count
     emit("render_time", scene=name, width=W_, height=H_, gaussians=mdl.total,
          entries=b.num_entries, stages=stages, render_model_host_ms=host,
          device=busy, device_idle_share=max(0.0, 1.0 - busy["busy_ms"] / host["median_ms"]),
@@ -1010,14 +1039,14 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     loss_before = view_loss(0)
     params_before = {n: getattr(model, n).detach().clone() for n in PARAM_NAMES}
     state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
-    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     metrics = []
     for it in range(1, TRAIN_STEPS + 1):
         v = (it - 1) % TRAIN_VIEWS
         model, state, m = train_step(model, state, bundle, cams[v], gts[v], v, it, bg, cfg)
         metrics.append(m)
     torch.cuda.synchronize()
-    launches = dict(raster.LAUNCHES)
+    launches = dict(LAUNCHES)
     loss_after = view_loss(0)
 
     check(launches == {"raster_fwd": TRAIN_STEPS, "raster_bwd": TRAIN_STEPS, "segsum": 0},
@@ -1050,7 +1079,7 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     # timed once, in the kernel_time phase at the serving path's view 0
     train_breakdown("main_path_hybrid", model, state, bundle, cams[0], gts[0], bg, cfg, extras,
                     {"backward_kernel": dict(bwd_kernel_t, scene="main_path_view0")})
-    raster.LAUNCHES.update(launches)  # timing launches do not count
+    LAUNCHES.update(launches)  # timing launches do not count
     return dict(launches=launches, bundle=bundle, gts=gts, cams=cams)
 
 
@@ -1190,12 +1219,12 @@ def pipeline_phase(dev) -> dict:
             max_alive_opacity=float(mdl.get_opacity_raw()[mdl.alive_mask()].max()),
             sort_route=raster.sort_route(mdl.total, W, H, RasterizerConfig())))
         if iteration in (EVENT - 1, EVENT):  # just before and just after the event
-            counted = dict(raster.LAUNCHES)
+            counted = dict(LAUNCHES)
             log[-1]["view0_loss"] = view_loss(mdl, 0)
-            raster.LAUNCHES.update(counted)  # measurement launches do not count
+            LAUNCHES.update(counted)  # measurement launches do not count
 
     torch.cuda.synchronize()
-    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     t0 = time.perf_counter()
     state = run_main_stage(model, bundle, cams, gts, list(range(TRAIN_VIEWS)), stack_seed=14,
                            opt_cfg=cfg, extras=extras, cameras_extent=extent,
@@ -1203,7 +1232,7 @@ def pipeline_phase(dev) -> dict:
                            generator=torch.Generator(device=dev).manual_seed(15))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(raster.LAUNCHES)
+    launches = dict(LAUNCHES)
     model = state.model
     loss_after = view_loss(model, 0)
     event, pre = log[EVENT - 1], log[EVENT - 2]
@@ -1230,7 +1259,7 @@ def pipeline_phase(dev) -> dict:
     # backward against their plain versions (which count the work the bounds
     # price), the sort route against the atomic one, the segment sum's route
     # form and keys form against their plain versions
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     cam = cams[0]
     with torch.no_grad():
         proj = project_model(cam, model)
@@ -1298,7 +1327,7 @@ def pipeline_phase(dev) -> dict:
     emit("route_time", scene="pipeline_4k_view0", entries=bins.num_entries, gaussians=n,
          parts=parts, route_bound_ms=bounds["segsum"][0],
          keys_form_bound_ms=bounds["segsum_keys"][0], route=route, keys_form=seg)
-    raster.LAUNCHES.update(before)  # comparison and timing launches do not count
+    LAUNCHES.update(before)  # comparison and timing launches do not count
     train_breakdown("pipeline_4k", model, state.opt_state, bundle, cam, gts[0], bg, cfg, extras,
                     {"backward_kernel_per_entry": t_entries, "route_by_sort": t_route,
                      "backward_kernel_atomic_same_view": t_atomic})
@@ -1330,7 +1359,7 @@ def pipeline_phase(dev) -> dict:
         "main_stage_host_s": run_s,
     }
     emit("pipeline_one_off", points=int(points.shape[0]), **one_off)
-    raster.LAUNCHES.update(before)
+    LAUNCHES.update(before)
     seg_bound, seg_bound_by = bounds["segsum"]
     return {"launches": launches,
             "per_launch": {k: (times[k]["median_ms"], bounds[k][0]) for k in times},
@@ -1345,24 +1374,23 @@ class CliRecorder:
     `with` block: how long the scene load (from `main`'s start to the init
     stage), the init stage (`setup_from_matches`) and the main stage
     (`run_main_stage`) take, the init stage's result, each iteration's
-    loss and host time (what `TrainLogger.step` is handed: `StepTimer`
-    synchronises the device before it reads the clock) and each
-    evaluation, and how long each of `StepTimer`'s device syncs waits (the
-    first sync after a step waits for the step's device work to end, where
-    the JAX CLI's `float(metrics.loss)` waits). With `profile_from`, it runs the profiler over the
+    loss and host time (what `TrainLogger.step` is handed: from the end of
+    the last callback to the loss read, which waits for the step's device
+    work, as the JAX CLI's `float(metrics.loss)` does) and each
+    evaluation. With `profile_from`, it runs the profiler over the
     `profile_iters` iterations after that one and keeps their device busy
     time and host time."""
 
     def __init__(self, profile_from: int | None = None, profile_iters: int = 0):
         self.profile_from, self.profile_iters = profile_from, profile_iters
-        self.steps, self.evals, self.seconds, self.sync_waits = [], [], {}, []
+        self.steps, self.evals, self.seconds = [], [], {}
         self.init = self.promoted = None
         self.window = {}
 
     def __enter__(self):
         self._saved = (pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage,
-                       TrainLogger.step, TrainLogger.eval, profiling._sync)
-        setup, run, step, evaluate, sync = self._saved
+                       TrainLogger.step, TrainLogger.eval)
+        setup, run, step, evaluate = self._saved
         rec = self
         self.t_main = time.perf_counter()
 
@@ -1403,23 +1431,17 @@ class CliRecorder:
                     rec.window["kernels"] = sum(e.count for e in kernels)
             return step(logger, iteration, l1, total, iter_time)
 
-        def timed_sync():
-            t0 = time.perf_counter()
-            sync()
-            rec.sync_waits.append(time.perf_counter() - t0)
-
         def recorded_eval(logger, name, l1, psnr, iteration):
             rec.evals.append((name, iteration, l1, psnr))
             return evaluate(logger, name, l1, psnr, iteration)
 
         pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage = timed_setup, timed_run
         TrainLogger.step, TrainLogger.eval = recorded_step, recorded_eval
-        profiling._sync = timed_sync
         return self
 
     def __exit__(self, *exc):
         (pipeline_mod.setup_from_matches, pipeline_mod.run_main_stage,
-         TrainLogger.step, TrainLogger.eval, profiling._sync) = self._saved
+         TrainLogger.step, TrainLogger.eval) = self._saved
         return False
 
 
@@ -1459,7 +1481,7 @@ def dp_against_train_step(dev, group, leaves, bundle, cams, gts, bg, cfg, rcfg) 
     for kind in ("dp", "single"):
         model = model_from_numpy(leaves, 3, device=dev)
         state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
-        raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
         losses, first = [], None
         for it in range(1, PAR_STEPS + 1):
             v = (it - 1) % TRAIN_VIEWS
@@ -1477,7 +1499,7 @@ def dp_against_train_step(dev, group, leaves, bundle, cams, gts, bg, cfg, rcfg) 
         final.update({n: getattr(model, n).clone() for n in ("xyz_gradient_accum", "denom",
                                                              "max_radii2d")})
         out[kind] = dict(model=model, state=state, losses=losses, first=first, final=final,
-                         launches=dict(raster.LAUNCHES))
+                         launches=dict(LAUNCHES))
     return out
 
 
@@ -1507,7 +1529,7 @@ def par_rank(rank: int, port: int, tmp: str, device_type: str) -> None:
         bg = torch.zeros(3, device=dev)
         cfg = OptimizationConfig(**PIPE_OPT)
         state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
-        raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
         model, state, m1 = dp.dp_train_step(group, model, state, bundle, cams[:2], gts[:2],
                                             [0, 1], 1, bg, cfg)
         torch.cuda.synchronize()
@@ -1532,7 +1554,7 @@ def par_rank(rank: int, port: int, tmp: str, device_type: str) -> None:
         final = {k: v.cpu() for k, v in state_of(out.model, out.opt_state).items()}
         torch.save(dict(step1=step1, final=final, loss1=float(m1.loss), losses=losses,
                         bg_alive=int(out.model.bg_alive.sum()), slots=out.model.total,
-                        launches=dict(raster.LAUNCHES), steps_by_sort=by_sort,
+                        launches=dict(LAUNCHES), steps_by_sort=by_sort,
                         all_reduce=reduce_t, run_s=run_s,
                         elements=buf.numel()),
                    os.path.join(tmp, f"rank{rank}.pt"))
@@ -1569,7 +1591,7 @@ def two_process_gloo(dev, bundle, gts, cams, card: str) -> dict:
                  for r in (0, 1)]
 
     # the reference: the mean of the two cameras' gradients, one update
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     model = model_from_numpy(hybrid_leaves(*HYBRID, seed=7), 3, device=dev)
     leaves = [getattr(model, n) for n in PARAM_NAMES]
     grads = []
@@ -1584,7 +1606,7 @@ def two_process_gloo(dev, bundle, gts, cams, card: str) -> dict:
     state = optim.init({n: getattr(model, n) for n in PARAM_NAMES})
     model, state = apply_update(model, state, mean, 1, cfg)
     torch.cuda.synchronize()
-    raster.LAUNCHES.update(before)  # reference launches do not count
+    LAUNCHES.update(before)  # reference launches do not count
     ref = {k: v.cpu() for k, v in state_of(model, state).items()}
     firm = {n: ref[f"m.{n}"].abs() > PAR_FIRM * ref[f"m.{n}"].abs().max() for n in PARAM_NAMES}
     step1_err = leaves_close("gloo step 1 vs the mean of two gradients",
@@ -1648,14 +1670,14 @@ def row_slices_phase(dev, card: str, name: str, scene: dict, W: int, H: int) -> 
     rng = np.random.default_rng(31)
     cots = [torch.tensor(rng.normal(size=sh).astype(np.float32), device=dev)
             for sh in ((3, H, W), (1, H, W), (1, H, W))]
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     whole, g_whole = slice_grads(proj, attrs, bg, W, H, cots, by_sort)
     torch.cuda.synchronize()
-    raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     sliced, g_sliced = slice_grads(proj, attrs, bg, W, H, cots, by_sort, slices=rows_per)
     torch.cuda.synchronize()
-    launches = dict(raster.LAUNCHES)
-    raster.LAUNCHES.update(before)
+    launches = dict(LAUNCHES)
+    LAUNCHES.update(before)
     check(launches == {"raster_fwd": PAR_SLICES, "raster_bwd": PAR_SLICES,
                        "segsum": PAR_SLICES if by_sort else 0},
           f"{name}: {PAR_SLICES} slices launched {launches}")
@@ -1678,7 +1700,7 @@ def row_slices_phase(dev, card: str, name: str, scene: dict, W: int, H: int) -> 
         _, _, _, Tw, lw = raster.raster_fwd(whole_bins, sa, sbg, W, H)
     cw = random_cotangents(W, H, 1, dev)
     bwd_fn = raster.raster_bwd_entries if by_sort else raster.raster_bwd
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     times = {
         "fwd_whole": cuda_times(lambda: raster.raster_fwd(whole_bins, sa, sbg, W, H)),
         "fwd_slice": cuda_times(lambda: raster.raster_fwd(sb, sa, sbg, W, H)),
@@ -1686,7 +1708,7 @@ def row_slices_phase(dev, card: str, name: str, scene: dict, W: int, H: int) -> 
         "bwd_slice": cuda_times(lambda: bwd_fn(sb, sa, sbg, bwd["T"], bwd["last"], *bwd["cots"],
                                                W, H)),
     }
-    raster.LAUNCHES.update(before)  # timing launches do not count
+    LAUNCHES.update(before)  # timing launches do not count
     f_bound = kernel_bound_ms(sb, sa, W, rows, cmp["pairs"])
     b_bound = kernel_bound_ms_bwd(sb, sa, W, rows, bwd["counts"], per_entry=by_sort)
     emit("parallel_row_slices", card=card, scene=name, width=W, height=H,
@@ -1763,7 +1785,7 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
                 for k, t in one["final"].items() if float(t.abs().max()) > 0}
     model, state = dp_run["model"], dp_run["state"]
     it = iter(range(100, 10_000))
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     step_t = {
         "dp_train_step": cuda_times(lambda: dp.dp_train_step(
             group, model, state, bundle, [cams[0]], [gts[0]], [0], next(it), bg, cfg)),
@@ -1772,7 +1794,7 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
     }
     buf = torch.ones(grad_elements(model), device=dev)
     step_t["nccl_all_reduce_world1"] = cuda_times(lambda: dist.all_reduce(buf, group=group))
-    raster.LAUNCHES.update(before)  # timing launches do not count
+    LAUNCHES.update(before)  # timing launches do not count
     emit("parallel_dp_world1", card=card, backend=dist.get_backend(group), world=1,
          steps=PAR_STEPS,
          width=cams[0].width, height=cams[0].height, gaussians=model.total,
@@ -1808,15 +1830,15 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
     cam = bench_camera(W, H, dev)
     grid = primitives.make_group_grid(1, 1)
     with torch.no_grad():
-        before = dict(raster.LAUNCHES)
+        before = dict(LAUNCHES)
         want = raster.rasterize(proj, W, H, bg0)
-        raster.LAUNCHES.update(dict.fromkeys(raster.LAUNCHES, 0))
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
         got_tiles = tiles.rasterize_tile_sharded(group, proj, W, H, bg0)
         got_prim = primitives.render_sharded(grid, cam, t["means"], t["opac"], t["scales"],
                                              t["quats"], t["shs"], bg0)
         torch.cuda.synchronize()
-        sharded_launches = dict(raster.LAUNCHES)
-        raster.LAUNCHES.update(before)
+        sharded_launches = dict(LAUNCHES)
+        LAUNCHES.update(before)
     check(sharded_launches == {"raster_fwd": 2, "raster_bwd": 0, "segsum": 0},
           f"the sharded renders launched {sharded_launches}")
     for label, got in (("rasterize_tile_sharded", got_tiles), ("render_sharded", got_prim)):
@@ -1834,7 +1856,7 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
     cards = torch.cuda.device_count()
     with tempfile.TemporaryDirectory(prefix="dp_cli_") as tmp:
         out_dir = os.path.join(tmp, "model")
-        before = dict(raster.LAUNCHES)
+        before = dict(LAUNCHES)
         try:
             train_cli.main(["-s", os.path.join(tmp, "no_scene"), "-m", out_dir,
                             "--data_parallel", str(cards + 1)])
@@ -1843,7 +1865,7 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
             exited = str(e)
         check(exited is not None and "available devices" in exited,
               f"--data_parallel {cards + 1} on {cards} card(s): {exited!r}")
-        check(not os.path.exists(out_dir) and raster.LAUNCHES == before,
+        check(not os.path.exists(out_dir) and LAUNCHES == before,
               "the refused CLI wrote or launched something")
     emit("parallel_cli_refuses", card=card, cards=cards, data_parallel=cards + 1, message=exited)
     hosts.shutdown()
@@ -1896,15 +1918,15 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
     resume_dir = os.path.join(tmp, "model_resume")
 
     # the scene: 20 views, ground truth rendered by the forward kernel
-    before = raster.LAUNCHES["raster_fwd"]
+    before = LAUNCHES["raster_fwd"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     generate_scene(scene_dir, n_views=CLI_VIEWS, n_gaussians=CLI_GAUSSIANS,
                    n_points=CLI_POINTS, width=CLI_SIZE[0], height=CLI_SIZE[1],
                    ring_radius=CLI_RING, device=dev)
     write_s = time.perf_counter() - t0
-    check(raster.LAUNCHES["raster_fwd"] - before == CLI_VIEWS,
-          f"scene writing: {raster.LAUNCHES['raster_fwd'] - before} forward launches")
+    check(LAUNCHES["raster_fwd"] - before == CLI_VIEWS,
+          f"scene writing: {LAUNCHES['raster_fwd'] - before} forward launches")
     info = read_colmap_scene(scene_dir, "images", True)
     pair_matches = [len(info.match_data[a.image_name][b.image_name])
                     for a in info.train_cameras for b in info.train_cameras if a is not b]
@@ -1924,7 +1946,7 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
 
     # the counted run: train, resume, render
     for name in KERNELS:
-        raster.LAUNCHES[name] = 0
+        LAUNCHES[name] = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train_args = ["-s", scene_dir, "-r", str(CLI_RESOLUTION), "--eval", "--no_tensorboard",
@@ -1945,7 +1967,7 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
             "--start_checkpoint", os.path.join(model_dir, f"chkpnt{CLI_CHECKPOINT}.npz")])
     render_s = render_cli.main(["-m", model_dir, "--device", DEVICE])
     torch.cuda.synchronize()
-    launches = dict(raster.LAUNCHES)
+    launches = dict(LAUNCHES)
 
     # the train CLI's artifacts (tests/test_cli_end_to_end.py:46-57), its health
     for rel in (f"point_cloud/iteration_{CLI_ITERATIONS}/point_cloud.ply", "cfg_args.json",
@@ -2012,7 +2034,7 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
 
     # both kernels at test view 0 with the trained model, against their
     # plain versions, and their times there
-    before = dict(raster.LAUNCHES)
+    before = dict(LAUNCHES)
     with torch.no_grad():
         proj = project_model(test_cams[0].camera, model)
         cmp = compare_kernel("cli_test_view0", proj, W, H,
@@ -2029,7 +2051,7 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
         # device time, or events when the profiler drops its sessions
         fwd_ms = kernel_device_ms(fwd) or cuda_times(fwd)["median_ms"]
         bwd_ms = kernel_device_ms(bwd_atomic) or cuda_times(bwd_atomic)["median_ms"]
-    raster.LAUNCHES.update(before)
+    LAUNCHES.update(before)
     fwd_bound = kernel_bound_ms(bins, attrs, W, H, cmp["pairs"])
     bwd_bound = kernel_bound_ms_bwd(bins, attrs, W, H, bwd["counts"])
 
@@ -2048,9 +2070,6 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
          init_loss_first=init_first, init_final_loss=init_loss, init_loss_floor=init_floor, matches=num_matches,
          promoted=rec.promoted, promoted_share=promoted, main_stage_s=rec.seconds["main_stage"], iteration_host=ms_summary(host),
          iteration_host_last_1000=ms_summary(host[-1000:]),
-         # StepTimer syncs twice an iteration: at its stop (after the step) and start
-         sync_wait_per_iteration=ms_summary([a + b for a, b in zip(rec.sync_waits[1::2],
-                                                                   rec.sync_waits[2::2])]),
          slots=state.model.total, alive=state.model.num_ray + int(state.model.bg_alive.sum()),
          ray_gaussians=state.model.num_ray, bg_capacity=state.model.bg_capacity,
          peak_memory_gb=peak_gb, evaluations=evals, launches=launches)
@@ -2104,24 +2123,24 @@ class Launches:
 
     def __init__(self):
         for name in KERNELS:
-            raster.LAUNCHES[name] = 0
-        self.mark = dict(raster.LAUNCHES)
+            LAUNCHES[name] = 0
+        self.mark = dict(LAUNCHES)
 
     def step(self, label: str, want: dict) -> None:
         torch.cuda.synchronize()
-        got = {k: raster.LAUNCHES[k] - self.mark[k] for k in KERNELS}
+        got = {k: LAUNCHES[k] - self.mark[k] for k in KERNELS}
         full = {k: want.get(k, 0) for k in KERNELS}
         check(got == full, f"eval {label}: launches {got}, expected {full}")
-        self.mark = dict(raster.LAUNCHES)
+        self.mark = dict(LAUNCHES)
 
     @contextlib.contextmanager
     def aside(self):
-        saved = dict(raster.LAUNCHES)
+        saved = dict(LAUNCHES)
         yield
-        raster.LAUNCHES.update(saved)
+        LAUNCHES.update(saved)
 
     def total(self) -> dict:
-        return dict(raster.LAUNCHES)
+        return dict(LAUNCHES)
 
 
 def u8_image(render: torch.Tensor) -> np.ndarray:

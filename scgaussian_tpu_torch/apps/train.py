@@ -132,7 +132,7 @@ def main(argv=None):
     from scgaussian_tpu_torch.train import pipeline
     from scgaussian_tpu_torch.train.main_stage import render_model
     from scgaussian_tpu_torch.utils.logging import TrainLogger
-    from scgaussian_tpu_torch.utils.profiling import StepTimer, trace
+    from scgaussian_tpu_torch.utils.profiling import trace
 
     args = build_parser().parse_args(argv)
     multihost = args.multihost or args.coordinator_address is not None
@@ -279,9 +279,12 @@ def main(argv=None):
         print(f"Viewer listening on {args.ip}:{gui.listener.getsockname()[1]}")
 
     cam0 = scene.train_cameras[0]
-    timer = StepTimer(pixels_per_step=cam0.width * cam0.height)
+    pixels = cam0.width * cam0.height
     t_start = time.time()
     ema = {"loss": 0.0}
+    # step time on the host clock: from the end of one callback to the loss
+    # read of the next, which waits for the step's device work; and its EMA
+    clock = {"last": None, "dt": None}
 
     first_test_iter = min(test_iterations) if test_iterations else -1
     bg = torch.tensor([1.0, 1.0, 1.0] if args.white_background else [0.0, 0.0, 0.0],
@@ -313,15 +316,17 @@ def main(argv=None):
         )
         return float(np.mean(l1s)), float(np.mean(psnrs))
 
-    timer.start()
+    clock["last"] = time.perf_counter()
 
     def callback(iteration, model, metrics, opt_state=None, raster=raster):
-        dt = timer.stop()
+        # one host sync per iteration, as in the JAX CLI
+        loss = float(metrics.loss)
+        dt = time.perf_counter() - clock["last"]
+        clock["dt"] = dt if clock["dt"] is None else 0.9 * clock["dt"] + 0.1 * dt
+        rays_per_s = pixels / clock["dt"] if clock["dt"] else 0.0
         if gui is not None:
             gui.poll(model, os.path.abspath(args.source_path), iteration,
                      opt_cfg.iterations, backend=args.backend, raster=raster)
-        # one host sync per iteration, as in the JAX CLI
-        loss = float(metrics.loss)
         ema["loss"] = 0.4 * loss + 0.6 * ema["loss"]
         logger.step(iteration, float(metrics.l1), loss, dt)
         if iteration % 100 == 0 or iteration == 1:
@@ -332,13 +337,13 @@ def main(argv=None):
                 "l1": float(metrics.l1),
                 "match_loss": float(metrics.match_loss),
                 "visible": int(metrics.num_visible),
-                "rays_per_s": timer.rays_per_s,
+                "rays_per_s": rays_per_s,
                 "elapsed_s": time.time() - t_start,
             }
             logger.json(rec)
             print(
                 f"[{iteration}] loss {ema['loss']:.5f} visible {rec['visible']} "
-                f"({timer.rays_per_s/1e6:.2f} Mrays/s)"
+                f"({rays_per_s/1e6:.2f} Mrays/s)"
             )
         if iteration in test_iterations and primary:
             if scene.test_cameras:
@@ -359,7 +364,7 @@ def main(argv=None):
                 os.path.join(args.model_path, f"chkpnt{iteration}.npz"),
                 model, opt_state, iteration,
             )
-        timer.start()
+        clock["last"] = time.perf_counter()
 
     group = None
     if multihost:

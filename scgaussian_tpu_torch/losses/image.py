@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scgaussian_tpu_torch.utils.profiling import count
+
 C1 = 0.01**2
 C2 = 0.03**2
 
@@ -77,6 +79,7 @@ def ssim(
     Args: img1/img2 [C, H, W] in [0, 1].
     """
     window = torch.as_tensor(_gaussian_window(window_size, 1.5), device=img1.device)
+    count("host_syncs")  # the copy from the host waits for the device
     pad = window_size // 2
 
     def conv(x):

@@ -36,10 +36,12 @@ from scgaussian_tpu_torch.model.gaussians import (
     BUFFER_NAMES, PARAM_NAMES, STAT_NAMES, GaussianModel,
 )
 from scgaussian_tpu_torch.train import optim
+from scgaussian_tpu_torch.utils.profiling import count, span
 
 BG_LEAVES = ("bg_xyz", "bg_f_dc", "bg_f_rest", "bg_scaling", "bg_rotation", "bg_opacity")
 
 
+@span("step.stats")
 @torch.no_grad()
 def update_stats(
     model: GaussianModel,
@@ -60,6 +62,7 @@ def update_stats(
     ))
     scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
                          device=viewspace_grad_pix.device)
+    count("host_syncs")  # the copy from the host waits for the device
     norm = torch.linalg.norm(viewspace_grad_pix * scale[None, :], dim=-1, keepdim=True)
     model.xyz_gradient_accum.add_(torch.where(vis[:, None], norm, 0.0))
     model.denom.add_(vis[:, None].to(torch.float32))
@@ -145,8 +148,10 @@ def densify_and_prune(
     dest = free_pos[rank[fits]]
     for name, values in cand.items():
         getattr(model, name)[dest] = values[fits]
+    count("host_syncs", 2 + len(cand))  # `dropped` and each boolean index
     new_slot = torch.zeros(cb, dtype=torch.bool, device=dev)
     new_slot[dest] = True
+    count("host_syncs")  # the scalar, copied from the host
     bg_alive = model.bg_alive | new_slot
 
     # fg split parents: the reference divides the LOG-domain scaling by
@@ -216,6 +221,7 @@ def grow_bg_capacity(
                                   count=opt_state.count)
 
 
+@span("train.reset_opacity")
 @torch.no_grad()
 def reset_opacity(
     model: GaussianModel, opt_state: optim.AdamState

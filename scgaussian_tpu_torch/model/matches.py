@@ -20,6 +20,7 @@ import torch
 from scgaussian_tpu_torch import resolve_device
 from scgaussian_tpu_torch.losses.sampling import grid_sample_2d
 from scgaussian_tpu_torch.train import optim
+from scgaussian_tpu_torch.utils.profiling import count, span
 
 _TENSOR_FIELDS = (
     "rays_o", "rays_d", "cam_rays_d", "uv", "color", "mask", "pad_valid", "near_far",
@@ -182,6 +183,7 @@ def _project_to_view(bundle: MatchBundle, world_pts: torch.Tensor, view: torch.T
     return xy, xyz[..., 2]
 
 
+@span("loss.match")
 def matchloss_from_renderdepth(
     bundle: MatchBundle, view: int | torch.Tensor, depth_map: torch.Tensor
 ) -> torch.Tensor:
@@ -198,6 +200,7 @@ def matchloss_from_renderdepth(
     pair_ids = bundle.pairs_of_view[view]  # [V-1]
     uv = bundle.uv[pair_ids]  # [V-1, M, 2]
     wh = torch.tensor([bundle.width, bundle.height], dtype=torch.float32, device=uv.device)
+    count("host_syncs")  # the copy from the host waits for the device
 
     norm = uv / wh * 2.0 - 1.0
     d = grid_sample_2d(depth_map, norm.reshape(-1, 2))[0].reshape(uv.shape[:2])  # [V-1, M]

@@ -49,6 +49,7 @@ import dataclasses
 import torch
 
 from scgaussian_tpu_torch.renderer.project import ProjectedGaussians, tile_rect
+from scgaussian_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,7 @@ def default_entry_budget(n: int, ptile_factor: int = 1) -> int:
     return 1 << (want - 1).bit_length()
 
 
+@span("render.bin")
 def bin_gaussians(
     proj: ProjectedGaussians, width: int, height: int, tile: int = 16,
     row_lo: int | None = None, ny_rows: int | None = None,
@@ -101,6 +103,7 @@ def bin_gaussians(
             # the rect's rows clamped to the slice, relabelled locally
             lo = torch.tensor([0, row_lo], dtype=rect_min.dtype, device=dev)
             hi = torch.tensor([nx, row_lo + ny], dtype=rect_min.dtype, device=dev)
+            count("host_syncs", 2)  # the copies from the host wait for the device
             rect_min = torch.minimum(torch.maximum(rect_min, lo), hi) - lo
             rect_max = torch.minimum(torch.maximum(rect_max, lo), hi) - lo
         span = rect_max - rect_min  # [N, 2] tiles covered per axis
@@ -109,7 +112,9 @@ def bin_gaussians(
         cov = torch.where(proj.radius > 0, cov, torch.zeros_like(cov)).to(torch.int64)
 
         n = cov.shape[0]
-        gid = torch.repeat_interleave(torch.arange(n, device=dev), cov)  # host sync
+        gid = torch.repeat_interleave(torch.arange(n, device=dev), cov)
+        count("host_syncs", 2)  # the entry count, to size the output, and its check of the repeats
+        count("bin.entries", gid.shape[0])
         if gid.shape[0] >= 2**31:
             raise ValueError(f"{gid.shape[0]} tile entries overflow the int32 ranges")
         # exclusive scan with the total appended: Gaussian g's Gaussian-major slots
@@ -125,6 +130,7 @@ def bin_gaussians(
         key = (tile_id << 32) | depth_bits[gid]
         order = torch.sort(key, stable=True).indices
         counts = torch.bincount(tile_id, minlength=num_tiles)
+        count("host_syncs", 2)  # the ids' least and largest value, to check and size the bins
         starts = torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev)
         starts[1:] = torch.cumsum(counts, 0)
         gid = gid.to(torch.int32)

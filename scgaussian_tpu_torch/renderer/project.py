@@ -17,6 +17,7 @@ import torch
 
 from scgaussian_tpu_torch.core import sh as sh_lib
 from scgaussian_tpu_torch.core.cameras import Camera
+from scgaussian_tpu_torch.utils.profiling import span
 
 NEAR_CULL_Z = 0.2  # CUDA in_frustum near cull
 
@@ -40,6 +41,7 @@ def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
+@span("project.cov3d")
 def compute_cov3d(
     scaling: torch.Tensor, rotation: torch.Tensor, scaling_modifier: float = 1.0
 ) -> torch.Tensor:
@@ -128,6 +130,7 @@ def compute_cov2d(
     return torch.stack([a, b, c], dim=-1)
 
 
+@span("project.color")
 def sh_to_color(
     shs: torch.Tensor,
     means3d: torch.Tensor,
@@ -151,6 +154,7 @@ def sh_to_color(
     return torch.clamp(rgb, min=0.0)
 
 
+@span("render.project")
 def project(
     camera: Camera,
     means3d: torch.Tensor,
@@ -169,63 +173,15 @@ def project(
     focal_x = W / (2.0 * camera.tanfovx)
     focal_y = H / (2.0 * camera.tanfovy)
 
-    def xform(M):  # [N, 4] = [means3d, 1] @ M.T, column by column
-        return (
-            means3d[:, 0:1] * M[None, :, 0]
-            + means3d[:, 1:2] * M[None, :, 1]
-            + means3d[:, 2:3] * M[None, :, 2]
-            + M[None, :, 3]
-        )
-
-    p_view = xform(camera.world_view)
-    depth = p_view[:, 2]
-    in_front = depth > NEAR_CULL_Z
-
-    p_hom = xform(camera.full_proj)
-    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
-    p_proj = p_hom[:, :3] * p_w[:, None]
-    mean2d = torch.stack([ndc2pix(p_proj[:, 0], W), ndc2pix(p_proj[:, 1], H)], dim=-1)
-
+    mean2d, depth, in_front = screen_means(camera, means3d)
     if cov3d_precomp is None:
         if scales is None or rotations is None:
             raise ValueError("scales and rotations are needed without cov3d_precomp")
         cov3d_packed = compute_cov3d(scales, rotations, scaling_modifier)
     else:
         cov3d_packed = cov3d_precomp
-    cov2d = compute_cov2d(
-        means3d, cov3d_packed, camera.world_view, focal_x, focal_y,
-        camera.tanfovx, camera.tanfovy,
-    )
-
-    a, b, c = cov2d[:, 0], cov2d[:, 1], cov2d[:, 2]
-    det = a * c - b * b
-    det_ok = det != 0.0
-    inv_det = torch.where(
-        det_ok, 1.0 / torch.where(det_ok, det, torch.ones_like(det)), torch.zeros_like(det)
-    )
-    conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=-1)
-
-    live = in_front & det_ok
-    with torch.no_grad():  # radius and extents drive binning only
-        mid = 0.5 * (a + c)
-        sq = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
-        lambda1 = mid + sq
-        radius_f = torch.ceil(3.0 * torch.sqrt(torch.maximum(lambda1, mid - sq)))
-        radius = torch.where(live, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
-
-        # Per-axis binning extents (JAX project.py:248-271): a pixel with
-        # q = d^T conic d > q_thr = 2 ln(255 op) has alpha < 1/255 and is
-        # excluded by the rasterizer, so only the axis-aligned bbox of the
-        # {q <= q_thr} ellipse (half-extents sqrt(q_thr * cov2d_ii)) can
-        # contribute. min() with the CUDA radius keeps the rect never larger
-        # than getRect's square; +1 and the 1e-4 margin absorb rounding.
-        opa = opacities.reshape(-1)
-        q_thr = 2.0 * torch.log(torch.clamp(255.0 * opa, min=1e-12)) * (1.0 + 1e-4)
-        q_thr = torch.clamp(q_thr, min=0.0)
-        ext_x = torch.ceil(torch.sqrt(q_thr * torch.clamp(a, min=0.0))) + 1.0
-        ext_y = torch.ceil(torch.sqrt(q_thr * torch.clamp(c, min=0.0))) + 1.0
-        ext = torch.minimum(torch.stack([ext_x, ext_y], dim=-1), radius_f[:, None])
-        ext = torch.where(live[:, None], ext, torch.zeros_like(ext)).to(torch.int32)
+    cov2d, det, det_ok, conic = screen_conics(means3d, cov3d_packed, camera, focal_x, focal_y)
+    radius, ext = screen_extents(cov2d, det, in_front & det_ok, opacities)
 
     if colors_precomp is None:
         if shs is None:
@@ -244,6 +200,81 @@ def project(
         valid=radius > 0,
         ext=ext,
     )
+
+
+@span("project.mean2d")
+def screen_means(camera: Camera, means3d: torch.Tensor):
+    """Pixel means [N, 2] (ndc2Pix), view-space depths [N] and the near
+    test [N] bool (CUDA in_frustum)."""
+    W, H = camera.width, camera.height
+
+    def xform(M):  # [N, 4] = [means3d, 1] @ M.T, column by column
+        return (
+            means3d[:, 0:1] * M[None, :, 0]
+            + means3d[:, 1:2] * M[None, :, 1]
+            + means3d[:, 2:3] * M[None, :, 2]
+            + M[None, :, 3]
+        )
+
+    p_view = xform(camera.world_view)
+    depth = p_view[:, 2]
+    in_front = depth > NEAR_CULL_Z
+
+    p_hom = xform(camera.full_proj)
+    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
+    p_proj = p_hom[:, :3] * p_w[:, None]
+    mean2d = torch.stack([ndc2pix(p_proj[:, 0], W), ndc2pix(p_proj[:, 1], H)], dim=-1)
+    return mean2d, depth, in_front
+
+
+@span("project.cov2d")
+def screen_conics(means3d: torch.Tensor, cov3d_packed: torch.Tensor, camera: Camera,
+                  focal_x: torch.Tensor, focal_y: torch.Tensor):
+    """The 2D covariance (a, b, c) [N, 3] (`compute_cov2d`), its
+    determinant [N], whether that is non-zero [N] and the conic [N, 3] (0
+    where the determinant is)."""
+    cov2d = compute_cov2d(
+        means3d, cov3d_packed, camera.world_view, focal_x, focal_y,
+        camera.tanfovx, camera.tanfovy,
+    )
+    a, b, c = cov2d[:, 0], cov2d[:, 1], cov2d[:, 2]
+    det = a * c - b * b
+    det_ok = det != 0.0
+    inv_det = torch.where(
+        det_ok, 1.0 / torch.where(det_ok, det, torch.ones_like(det)), torch.zeros_like(det)
+    )
+    conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=-1)
+    return cov2d, det, det_ok, conic
+
+
+@span("project.extent")
+@torch.no_grad()  # radius and extents drive binning only
+def screen_extents(cov2d: torch.Tensor, det: torch.Tensor, live: torch.Tensor,
+                   opacities: torch.Tensor):
+    """CUDA's integer 3-sigma radius [N] int32 and the per-axis binning
+    half-extents [N, 2] int32, both 0 where `live` [N] is False (culled by
+    the near test or a zero determinant)."""
+    a, c = cov2d[:, 0], cov2d[:, 2]
+    mid = 0.5 * (a + c)
+    sq = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    lambda1 = mid + sq
+    radius_f = torch.ceil(3.0 * torch.sqrt(torch.maximum(lambda1, mid - sq)))
+    radius = torch.where(live, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
+
+    # Per-axis binning extents (JAX project.py:248-271): a pixel with
+    # q = d^T conic d > q_thr = 2 ln(255 op) has alpha < 1/255 and is
+    # excluded by the rasterizer, so only the axis-aligned bbox of the
+    # {q <= q_thr} ellipse (half-extents sqrt(q_thr * cov2d_ii)) can
+    # contribute. min() with the CUDA radius keeps the rect never larger
+    # than getRect's square; +1 and the 1e-4 margin absorb rounding.
+    opa = opacities.reshape(-1)
+    q_thr = 2.0 * torch.log(torch.clamp(255.0 * opa, min=1e-12)) * (1.0 + 1e-4)
+    q_thr = torch.clamp(q_thr, min=0.0)
+    ext_x = torch.ceil(torch.sqrt(q_thr * torch.clamp(a, min=0.0))) + 1.0
+    ext_y = torch.ceil(torch.sqrt(q_thr * torch.clamp(c, min=0.0))) + 1.0
+    ext = torch.minimum(torch.stack([ext_x, ext_y], dim=-1), radius_f[:, None])
+    ext = torch.where(live[:, None], ext, torch.zeros_like(ext)).to(torch.int32)
+    return radius, ext
 
 
 def tile_rect(

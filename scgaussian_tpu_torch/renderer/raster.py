@@ -18,11 +18,12 @@ atomics and no reordered copy.
 
 `raster_fwd`, `raster_bwd`, `raster_bwd_entries`, `segsum` and
 `segsum_runs` (which `route_by_sort` calls) are the wrappers: on CUDA
-tensors they launch their kernel (and count the launch in `LAUNCHES`; both
-backward epilogues count as "raster_bwd", both segment-sum forms as
-"segsum"), on CPU tensors they run the plain versions, the same arithmetic
-in PyTorch ops. There is no other fallback: a CUDA tensor never reaches a
-plain version through a wrapper, and a build or launch failure raises.
+tensors they launch their kernel (and count the launch with
+`profiling.count`: `kernel.raster_fwd`, `kernel.raster_bwd` for both
+backward epilogues, `kernel.segsum` for both segment-sum forms), on CPU
+tensors they run the plain versions, the same arithmetic in PyTorch ops.
+There is no other fallback: a CUDA tensor never reaches a plain version
+through a wrapper, and a build or launch failure raises.
 `rasterize` is differentiable through `RasterizeFn`.
 
 Bins restricted to a slice of tile rows (`bin_gaussians(row_lo, ny_rows)`,
@@ -51,6 +52,7 @@ from scgaussian_tpu_torch.renderer import _build
 from scgaussian_tpu_torch.renderer.binning import TileBins, bin_gaussians, default_entry_budget
 from scgaussian_tpu_torch.renderer.oracle import ALPHA_MAX, ALPHA_MIN, T_EPS
 from scgaussian_tpu_torch.renderer.project import ProjectedGaussians
+from scgaussian_tpu_torch.utils.profiling import count, span
 
 TILE = 16  # the kernel's tile: one 16x16 block of threads per tile
 ATTR_WIDTH = 12  # packed attribute row, 3 float4 (see csrc/raster_fwd.cu)
@@ -69,12 +71,10 @@ CULL_PIX_SLACK = 1e-3
 WARP_STATS = ("warp_entries", "live_warp_entries", "culled_warp_entries",
               "live_warp_pairs", "dead_warp_pairs", "culled_pairs")
 
-# Kernel launches since import, by kernel. Only the wrappers add to it.
-LAUNCHES = {"raster_fwd": 0, "raster_bwd": 0, "segsum": 0}
-
 RasterOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+@span("render.pack")
 def pack_attrs(proj: ProjectedGaussians) -> torch.Tensor:
     """[N, 12] float32 rows (mean x, mean y, conic a, b, c, opacity, r, g,
     b, depth, 0, 0): the kernel reads each row as 3 float4."""
@@ -130,6 +130,7 @@ def _check_inputs(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
         raise ValueError(f"bins' tile rows [{bins.row_lo}, {bins.row_lo + bins.ny}) are empty")
 
 
+@span("render.raster_fwd")
 def raster_fwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                width: int, height: int) -> RasterOut:
     """Composite every tile's entries front to back.
@@ -182,7 +183,7 @@ def _raster_fwd_cuda(bins, attrs, bg, width, height) -> RasterOut:
         )
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
-    LAUNCHES["raster_fwd"] += 1
+    count("kernel.raster_fwd")
     return color, depth, alpha, T, last
 
 
@@ -364,6 +365,7 @@ def _check_bwd_inputs(bins, attrs, T_final, last, g_color, g_depth, g_alpha,
             raise ValueError(f"{name} must be contiguous")
 
 
+@span("render.raster_bwd")
 def raster_bwd(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
                g_depth: torch.Tensor, g_alpha: torch.Tensor,
@@ -418,7 +420,7 @@ def _raster_bwd_cuda(bins, attrs, bg, T_final, last, g_color, g_depth, g_alpha,
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
-    LAUNCHES["raster_bwd"] += 1
+    count("kernel.raster_bwd")
     return d_out
 
 
@@ -509,7 +511,7 @@ def _segsum_runs_cuda(starts, vals, n, width) -> torch.Tensor:
                  stream)
     if err != 0:
         raise RuntimeError(f"segsum launch failed: CUDA error {err}")
-    LAUNCHES["segsum"] += 1
+    count("kernel.segsum")
     return out
 
 
@@ -559,6 +561,7 @@ def route_by_sort(bins: TileBins, d_gmaj: torch.Tensor, n: int) -> torch.Tensor:
     return segsum_runs(bins.gmaj_starts, d_gmaj, n, width=ATTR_WIDTH)
 
 
+@span("render.raster_bwd")
 def raster_bwd_entries(bins: TileBins, attrs: torch.Tensor, bg: torch.Tensor,
                        T_final: torch.Tensor, last: torch.Tensor, g_color: torch.Tensor,
                        g_depth: torch.Tensor, g_alpha: torch.Tensor,

@@ -36,8 +36,10 @@ from scgaussian_tpu_torch.model.matches import MatchBundle, matchloss_from_rende
 from scgaussian_tpu_torch.renderer import RenderOutput, render
 from scgaussian_tpu_torch.renderer.project import sh_to_color
 from scgaussian_tpu_torch.train import optim
+from scgaussian_tpu_torch.utils.profiling import span
 
 
+@span("render.view")
 def render_model(
     camera: Camera,
     model: GaussianModel,
@@ -59,33 +61,11 @@ def render_model(
     PipelineParams debug paths (`gaussian_renderer/__init__.py:59-96`):
     colors / 3D covariance are precomputed outside the rasterizer's own
     SH/covariance stages."""
-    xyz = model.get_xyz()
-    shs = None
-    colors_precomp = None
-    if convert_shs_python:
-        colors_precomp = sh_to_color(
-            model.get_features(), xyz, camera.cam_center, model.max_sh_degree
-        )
-    else:
-        shs = model.get_features()
-
-    scales = rotations = cov3d_precomp = None
-    if compute_cov3d_python:
-        cov3d_precomp = model.get_covariance(scaling_modifier)
-    else:
-        scales = model.get_scaling()
-        rotations = model.get_rotation()
-
     return render(
         camera,
-        xyz,
-        model.get_opacity().reshape(-1),
-        bg_color,
-        scales=scales,
-        rotations=rotations,
-        shs=shs,
-        colors_precomp=colors_precomp,
-        cov3d_precomp=cov3d_precomp,
+        bg_color=bg_color,
+        **_render_inputs(camera, model, scaling_modifier, convert_shs_python,
+                         compute_cov3d_python),
         active_sh_degree=model.max_sh_degree,  # bands masked by the active degree
         scaling_modifier=scaling_modifier,
         mean2d_offset=mean2d_offset,
@@ -96,6 +76,28 @@ def render_model(
     )
 
 
+@span("render.activate")
+def _render_inputs(camera: Camera, model: GaussianModel, scaling_modifier: float,
+                   convert_shs_python: bool, compute_cov3d_python: bool) -> dict:
+    """The model's activated leaves as `render`'s arguments: means and
+    opacities, SH features or precomputed colours, scales and rotations or
+    precomputed 3D covariances."""
+    xyz = model.get_xyz()
+    out = dict(means3d=xyz, opacities=model.get_opacity().reshape(-1))
+    if convert_shs_python:
+        out["colors_precomp"] = sh_to_color(
+            model.get_features(), xyz, camera.cam_center, model.max_sh_degree
+        )
+    else:
+        out["shs"] = model.get_features()
+    if compute_cov3d_python:
+        out["cov3d_precomp"] = model.get_covariance(scaling_modifier)
+    else:
+        out["scales"] = model.get_scaling()
+        out["rotations"] = model.get_rotation()
+    return out
+
+
 def dtu_background_mask(gt_image: torch.Tensor, dark_threshold: float, shift_rows: int):
     """DTU dark-background mask (`train.py:149-158`): pixel is background iff
     it and the `shift_rows-1` rows above it are all darker than the threshold."""
@@ -103,6 +105,14 @@ def dtu_background_mask(gt_image: torch.Tensor, dark_threshold: float, shift_row
     padded = F.pad(dark, (0, 0, shift_rows - 1, 0), value=1.0)  # [1, H + s - 1, W]
     windowed = -F.max_pool2d(-padded[None], (shift_rows, 1), stride=1)[0]  # min over rows
     return windowed > 0.5  # [1, H, W] bool
+
+
+@span("loss.photo")
+def photo_loss(image: torch.Tensor, gt_image: torch.Tensor, lambda_dssim: float):
+    """(1 - lambda_dssim) L1 + lambda_dssim (1 - SSIM), and the L1
+    (`train.py:143-146`)."""
+    ll1 = l1_loss(image, gt_image)
+    return (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(image, gt_image)), ll1
 
 
 class StepMetrics(NamedTuple):
@@ -137,14 +147,12 @@ def make_camera_loss(
         )
         gt_image = torch.where(bg_mask, 0.0, gt_image)
 
+    @span("step.forward")
     def loss_fn(offset: torch.Tensor):
         out = render_model(
             camera, model, bg_color, mean2d_offset=offset, backend=backend, raster=raster,
         )
-        ll1 = l1_loss(out.render, gt_image)
-        loss = (1.0 - opt_cfg.lambda_dssim) * ll1 + opt_cfg.lambda_dssim * (
-            1.0 - ssim(out.render, gt_image)
-        )
+        loss, ll1 = photo_loss(out.render, gt_image, opt_cfg.lambda_dssim)
         mloss = matchloss_from_renderdepth(bundle, view_idx, out.rendered_depth)
         loss = loss + extras.render_match_loss_weight * mloss
         if bg_mask is not None:
@@ -185,6 +193,7 @@ def lr_tree(
     )
 
 
+@span("step.adam")
 @torch.no_grad()
 def apply_update(
     model: GaussianModel,
@@ -207,6 +216,15 @@ def apply_update(
     return model, opt_state
 
 
+@span("step.backward")
+def gradients(loss: torch.Tensor, inputs: list) -> list:
+    """d loss / d each of `inputs` in one `autograd.grad` call (nothing
+    accumulates in `.grad`), zeros for an input the loss does not reach."""
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+
+
+@span("train.step")
 def train_step(
     model: GaussianModel,
     opt_state: optim.AdamState,
@@ -233,10 +251,7 @@ def train_step(
     )
     loss, (out, ll1, mloss) = loss_fn(offset0)
 
-    # one call for every leaf and the offset: nothing accumulates in .grad
-    leaves = [getattr(model, name) for name in PARAM_NAMES]
-    grads = torch.autograd.grad(loss, leaves + [offset0], allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves + [offset0], grads)]
+    grads = gradients(loss, [getattr(model, name) for name in PARAM_NAMES] + [offset0])
     g_params = dict(zip(PARAM_NAMES, grads[:-1]))
     g_offset = grads[-1]
 

@@ -33,6 +33,7 @@ from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, GaussianModel, cre
 from scgaussian_tpu_torch.parallel import dp as dp_mod
 from scgaussian_tpu_torch.train import optim
 from scgaussian_tpu_torch.train.main_stage import train_step
+from scgaussian_tpu_torch.utils.profiling import span
 
 
 def setup_from_matches(
@@ -69,6 +70,41 @@ def setup_from_matches(
         device=bundle.rays_o.device,
     )
     return model, result
+
+
+@span("train.densify")
+def densify_event(
+    model: GaussianModel,
+    opt_state: optim.AdamState,
+    iteration: int,
+    opt_cfg: OptimizationConfig,
+    extras: TrainExtras,
+    cameras_extent: float,
+    generator: Optional[torch.Generator],
+) -> Tuple[GaussianModel, optim.AdamState]:
+    """One densify and prune event of the main stage (`train.py:195-197`)
+    with the background-capacity guard: the reference grows without bound
+    (`scene/gaussian_model.py:777-842`); a full fixed-capacity pool grows
+    rather than silently stop densifying."""
+    size_threshold = extras.size_threshold if iteration > opt_cfg.opacity_reset_interval else None
+    model, opt_state, dropped = densify_and_prune(
+        model, opt_state, opt_cfg.densify_grad_threshold,
+        extras.prune_min_opacity, cameras_extent, size_threshold,
+        opt_cfg.percent_dense, fg_split_log_quirk=extras.fg_split_log_quirk,
+        generator=generator,
+    )
+    if dropped > 0:
+        cb = model.bg_capacity
+        new_cb = cb
+        while new_cb < cb + dropped:
+            new_cb *= 2
+        msg = (f"[guard] iteration {iteration}: densify dropped {dropped} "
+               f"candidates (bg capacity {cb})")
+        if not extras.guard_auto_grow:
+            raise RuntimeError(msg + "; set guard_auto_grow=True or raise bg_capacity")
+        print(msg + f" -> growing bg capacity to {new_cb}")
+        model, opt_state = grow_bg_capacity(model, opt_state, new_cb)
+    return model, opt_state
 
 
 @dataclasses.dataclass
@@ -175,28 +211,8 @@ def run_main_stage(
         if iteration < opt_cfg.densify_until_iter:
             if (iteration > opt_cfg.densify_from_iter
                     and iteration % opt_cfg.densification_interval == 0):
-                size_threshold = (extras.size_threshold
-                                  if iteration > opt_cfg.opacity_reset_interval else None)
-                model, opt_state, dropped = densify_and_prune(
-                    model, opt_state, opt_cfg.densify_grad_threshold,
-                    extras.prune_min_opacity, cameras_extent, size_threshold,
-                    opt_cfg.percent_dense, fg_split_log_quirk=extras.fg_split_log_quirk,
-                    generator=generator,
-                )
-                # bg-capacity guard: the reference grows without bound
-                # (`scene/gaussian_model.py:777-842`); a full fixed-capacity
-                # pool grows rather than silently stop densifying
-                if dropped > 0:
-                    cb = model.bg_capacity
-                    new_cb = cb
-                    while new_cb < cb + dropped:
-                        new_cb *= 2
-                    msg = (f"[guard] iteration {iteration}: densify dropped {dropped} "
-                           f"candidates (bg capacity {cb})")
-                    if not extras.guard_auto_grow:
-                        raise RuntimeError(msg + "; set guard_auto_grow=True or raise bg_capacity")
-                    print(msg + f" -> growing bg capacity to {new_cb}")
-                    model, opt_state = grow_bg_capacity(model, opt_state, new_cb)
+                model, opt_state = densify_event(model, opt_state, iteration, opt_cfg, extras,
+                                                 cameras_extent, generator)
             if iteration < opt_cfg.opacity_reset_until_iter and (
                 iteration % opt_cfg.opacity_reset_interval == 0
                 or (white_background and iteration == opt_cfg.densify_from_iter)

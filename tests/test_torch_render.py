@@ -31,8 +31,16 @@ from scgaussian_tpu_torch.renderer import oracle as toracle
 from scgaussian_tpu_torch.renderer import project as tproject
 from scgaussian_tpu_torch.renderer import raster
 from scgaussian_tpu_torch.renderer import render as trender
+from scgaussian_tpu_torch.utils import profiling
 from test_oracle_renderer import _rotmat, make_scene  # tests/ is on sys.path under pytest
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+
+
+def launches():
+    """The kernels' launch counters (`profiling.TOTALS`), by kernel."""
+    return {k: profiling.TOTALS.get("kernel." + k, 0)
+            for k in ("raster_fwd", "raster_bwd", "segsum")}
+
 
 PROJ_FIELDS = ("mean2d", "depth", "conic", "color", "opacity", "radius", "valid", "ext")
 
@@ -744,10 +752,10 @@ def test_cuda_kernel_matches_plain():
         bins = tbinning.bin_gaussians(proj, cam.width, cam.height)
         attrs = raster.pack_attrs(proj)
         bg_t = torch.tensor(bg, dtype=torch.float32, device="cuda")
-        before = dict(raster.LAUNCHES)
+        before = launches()
         k = raster.raster_fwd(bins, attrs, bg_t, cam.width, cam.height)
         torch.cuda.synchronize()
-        assert raster.LAUNCHES["raster_fwd"] == before["raster_fwd"] + 1
+        assert launches()["raster_fwd"] == before["raster_fwd"] + 1
         p = raster.raster_fwd_plain(bins, attrs, bg_t, cam.width, cam.height)
         for a, b, tl in zip(k[:4], p[:4], (tol, dtol, tol, tol)):
             torch.testing.assert_close(a, b, atol=tl, rtol=0)
@@ -757,7 +765,7 @@ def test_cuda_kernel_matches_plain():
         T, last = k[3], k[4]
         kb = raster.raster_bwd(bins, attrs, bg_t, T, last, *cots, cam.width, cam.height)
         torch.cuda.synchronize()
-        assert raster.LAUNCHES["raster_bwd"] == before["raster_bwd"] + 1
+        assert launches()["raster_bwd"] == before["raster_bwd"] + 1
         pb = raster.raster_bwd_plain(bins, attrs, bg_t, T, last, *cots, cam.width, cam.height)
     assert_grad_groups(kb, pb, 1e-5, "kernel vs plain")
     # the kernel's outputs carry no history: a differentiable call must go
@@ -782,11 +790,11 @@ def test_cuda_segsum_matches_plain():
     for name, (keys, vals) in cases:
         k = torch.tensor(keys, device="cuda")
         v = torch.tensor(vals, device="cuda")
-        before = raster.LAUNCHES["segsum"]
+        before = launches()["segsum"]
         a = raster.segsum(k, v, SEG_N)
         b = raster.segsum(k, v, SEG_N)
         torch.cuda.synchronize()
-        assert raster.LAUNCHES["segsum"] == before + 2
+        assert launches()["segsum"] == before + 2
         p = raster.segsum_plain(k, v, SEG_N)
         assert torch.equal(a, b), name
         tol = 1e-5 * (p.abs().amax(0) + 1)
@@ -817,11 +825,11 @@ def test_cuda_route_matches_plain():
         d_gmaj = raster.raster_bwd_entries(bins, attrs, bg_t, T, last, *cots, cam.width,
                                            cam.height)
         n = attrs.shape[0]
-        before = raster.LAUNCHES["segsum"]
+        before = launches()["segsum"]
         a = raster.route_by_sort(bins, d_gmaj, n)
         b = raster.route_by_sort(bins, d_gmaj, n)
         torch.cuda.synchronize()
-        assert raster.LAUNCHES["segsum"] == before + 2
+        assert launches()["segsum"] == before + 2
         p = raster.segsum_runs_plain(bins.gmaj_starts, d_gmaj, n, raster.ATTR_WIDTH)
     assert a.shape == (n, raster.ATTR_WIDTH) and torch.equal(a, b)
     assert float(a[:, raster.NUM_GRADS:].abs().max()) == 0.0
@@ -855,10 +863,10 @@ def test_cuda_sort_route_matches_atomic_route():
         loss = (color * cots[0]).sum() + (depth * cots[1]).sum() + (alpha * cots[2]).sum()
         return torch.autograd.grad(loss, a)[0]
 
-    before = dict(raster.LAUNCHES)
+    before = launches()
     atomic = grads(False)
     by_sort = grads(True)
     torch.cuda.synchronize()
-    assert raster.LAUNCHES["segsum"] == before["segsum"] + 1
-    assert raster.LAUNCHES["raster_bwd"] == before["raster_bwd"] + 2
+    assert launches()["segsum"] == before["segsum"] + 1
+    assert launches()["raster_bwd"] == before["raster_bwd"] + 2
     assert_grad_groups(by_sort, atomic, 1e-5, "sort vs atomic")
