@@ -44,6 +44,7 @@ from scgaussian_tpu_torch.model import io as t_io
 from scgaussian_tpu_torch.viewer import network_gui as t_gui
 from scgaussian_tpu_torch.utils import colormap, logging as tlogging, profiling
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 ITERATIONS, INIT, CHECKPOINT = 40, 150, 20
 # tests/test_cli_end_to_end.py:25-43, on the port's default backend

@@ -25,6 +25,7 @@ from scgaussian_tpu_torch import config as tconfig
 from scgaussian_tpu_torch.core import cameras as tcam
 from scgaussian_tpu_torch.core import sh as tsh
 from scgaussian_tpu_torch.core import transforms as ttr
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "scgaussian_tpu_torch"

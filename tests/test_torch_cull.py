@@ -20,6 +20,7 @@ from scgaussian_tpu_torch.renderer import project as tproject
 from scgaussian_tpu_torch.renderer import raster
 from scgaussian_tpu_torch.renderer.oracle import ALPHA_MAX, ALPHA_MIN
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 from test_torch_render import CASES, cotangents
 
 ALPHA_MIN_F32 = float(np.float32(ALPHA_MIN))

@@ -37,6 +37,7 @@ from scgaussian_tpu_torch.data import scene as tscene
 from scgaussian_tpu_torch.data import virtual_poses as tvp
 from scgaussian_tpu_torch.data.synthetic import generate_scene as t_generate_scene
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 SCENE = dict(n_views=10, n_gaussians=40, n_points=80, width=64, height=48)
 CAMERA_FIELDS = ("uid", "R", "T", "fovy", "fovx", "image_path", "image_name", "width", "height",

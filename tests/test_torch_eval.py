@@ -37,6 +37,7 @@ from scgaussian_tpu_torch.model.gaussians import model_from_numpy
 from scgaussian_tpu_torch.utils import debug as tdebug
 from scgaussian_tpu_torch.viewer import network_gui as tgui
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 from test_torch_model import hybrid_leaves, jax_model
 
 METRIC_TOL = 1e-5

@@ -21,6 +21,7 @@ from scgaussian_tpu_torch.model.gaussians import (
 )
 from scgaussian_tpu_torch.train.main_stage import render_model as t_render_model
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 W, H = 64, 48
 NUM_RAY, NUM_ALIVE, CAPACITY = 150, 40, 64

@@ -38,6 +38,7 @@ from scgaussian_tpu_torch.renderer.binning import bin_gaussians
 from scgaussian_tpu_torch.train import main_stage as tmain
 from scgaussian_tpu_torch.train import optim as toptim
 from scgaussian_tpu_torch.train import pipeline as tpipe
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 JOIN_TIMEOUT = 120  # seconds for every start of ranks
 W, H = 64, 48  # tests/synthetic_scene.py's views

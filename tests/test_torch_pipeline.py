@@ -36,6 +36,7 @@ from scgaussian_tpu_torch.train import pipeline as tpipeline
 from synthetic_scene import make_synthetic  # tests/ is on sys.path under pytest
 from test_torch_train import jax_model, port_bundle, port_camera, port_model
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 EPS32 = float(np.finfo(np.float32).eps)
 

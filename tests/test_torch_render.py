@@ -34,6 +34,7 @@ from scgaussian_tpu_torch.renderer import render as trender
 from scgaussian_tpu_torch.utils import profiling
 from test_oracle_renderer import _rotmat, make_scene  # tests/ is on sys.path under pytest
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 
 def launches():

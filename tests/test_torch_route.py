@@ -24,6 +24,7 @@ from scgaussian_tpu_torch.renderer import binning as tbinning
 from scgaussian_tpu_torch.renderer import project as tproject
 from scgaussian_tpu_torch.renderer import raster
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 from test_torch_render import CASES, SEG_N, cotangents, segsum_layouts
 
 SCENES = [*CASES, "nothing_visible"]

@@ -19,6 +19,7 @@ from scgaussian_tpu_torch.core.cameras import Camera
 from scgaussian_tpu_torch.renderer import binning, project
 from scgaussian_tpu_torch.utils import profiling
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 SEED = 2**31 + 11
 READERS = {

@@ -33,6 +33,7 @@ from scgaussian_tpu_torch.train import main_stage as tmain
 from scgaussian_tpu_torch.train import optim as toptim
 from synthetic_scene import make_synthetic  # tests/ is on sys.path under pytest
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
+from time_limits import per_test_limit  # noqa: F401 (autouse: a time limit for each test)
 
 B1 = 0.9
 
