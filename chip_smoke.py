@@ -6,8 +6,9 @@
 Builds the CUDA kernels of `scgaussian_tpu_torch` from the sources in this
 checkout (one nvcc per source, started together) and reports each one's
 resident blocks per SM, holds each against its plain PyTorch version on the
-card (also on a scene built to press on the compositing kernels' cull),
-then drives the port's paths:
+card (also on a scene built to press on the compositing kernels' cull; the
+SSIM kernels at LLFF's 4032x3024, timed beside their plain versions and the
+`F.conv2d` route they replaced), then drives the port's paths:
 
 - serving: model saved to PLY -> `load_ply` -> `render_model` for 5 views
   at 1920x1080, 100k Gaussians, SH degree 3, under `torch.no_grad()`;
@@ -85,6 +86,7 @@ from PIL import Image
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from scgaussian_tpu_torch import _build
 from scgaussian_tpu_torch.apps import acceptance
 from scgaussian_tpu_torch.apps import metrics as metrics_cli
 from scgaussian_tpu_torch.apps import render as render_cli
@@ -103,7 +105,7 @@ from scgaussian_tpu_torch.data.virtual_poses import get_near_virtual_pose
 from scgaussian_tpu_torch.eval import geo_check
 from scgaussian_tpu_torch.eval import lpips as lpips_mod
 from scgaussian_tpu_torch.eval import metrics as metrics_mod
-from scgaussian_tpu_torch.losses import aux, l1_loss, ssim
+from scgaussian_tpu_torch.losses import aux, image as image_losses, l1_loss, ssim
 from scgaussian_tpu_torch.model.densify import densify_and_prune, reset_opacity, update_stats
 from scgaussian_tpu_torch.model.gaussians import PARAM_NAMES, create_model, model_from_numpy
 from scgaussian_tpu_torch.model.io import load_ply, save_ply
@@ -113,7 +115,7 @@ from scgaussian_tpu_torch.model.matches import (
     build_match_bundle, bundle_from_numpy, init_zvals, matchloss_from_base, matchloss_from_renderdepth,
     promote_matches, run_init_stage,
 )
-from scgaussian_tpu_torch.renderer import _build, raster
+from scgaussian_tpu_torch.renderer import raster
 from scgaussian_tpu_torch.renderer.api import render
 from scgaussian_tpu_torch.renderer.binning import bin_gaussians
 from scgaussian_tpu_torch.renderer.oracle import composite_dense
@@ -176,6 +178,17 @@ PIPE_OPT = dict(densify_from_iter=5, densification_interval=5, opacity_reset_int
 EVENT = 10  # the iteration of that event
 MIN_PROMOTED = 0.9  # share of the (exact) matches the init stage must promote
 SEGSUM_REL_MAX = 1e-5  # kernel vs plain, per column: index_add_ sums in another order
+# SSIM (csrc/ssim.cu) at the size the llff_r1.train cell takes it: LLFF at -r 1
+SSIM_SIZE = (4032, 3024)
+SSIM_LOSS_REL = 1e-6  # kernel vs plain: fp64 partial sums against torch.mean's fp32 sum
+SSIM_GRAD_REL = 1e-5  # of max|g|: separable taps against the 2-D window, another order
+# fp32 operations a pixel of the separable form (an FMA two): forward, 5 moments
+# x 22 taps x 2, 3 products and ~37 for S and the three maps; backward, 3 maps x
+# 22 taps x 2 and ~8 to combine them
+SSIM_OPS_FWD = 260
+SSIM_OPS_BWD = 140
+SSIM_BYTES_FWD = 20  # a pixel: both images read (8), three maps written (12)
+SSIM_BYTES_BWD = 24  # a pixel: three maps and both images read (20), the gradient written (4)
 # sort route vs atomic route, per column group: atomics reorder the latter's sums
 ROUTE_REL_MAX = 1e-5
 # the command-line path: the LLFF few-shot protocol (BASELINE.md:24-30) on the
@@ -230,6 +243,8 @@ PAR_SLICES = 4  # tile-row slices, rendered one after another
 PAR_JOIN_S = 240  # the two processes must end within this
 DEVICE = "cuda"
 KERNELS = ("raster_fwd", "raster_bwd", "segsum")
+SSIM_KERNELS = ("ssim_fwd", "ssim_bwd")  # csrc/ssim.cu
+COUNTED = KERNELS + SSIM_KERNELS  # every kernel whose launches the script counts
 REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
             "raster_bwd": "scgaussian_tpu/renderer/tile_raster.py:685",
             "segsum": "scgaussian_tpu/renderer/tile_raster.py:1052"}
@@ -237,16 +252,17 @@ REPLACES = {"raster_fwd": "scgaussian_tpu/renderer/tile_raster.py:578",
 
 class KernelLaunches(collections.abc.MutableMapping):
     """The kernels' launch counters (`profiling.TOTALS["kernel.<name>"]`,
-    counted since import by the wrappers in `renderer/raster.py`) as a dict
-    by kernel name, which this script reads, saves and restores."""
+    counted since import by the wrappers in `renderer/raster.py` and
+    `losses/image.py`) as a dict by kernel name over `COUNTED`, which this
+    script reads, zeroes, saves and restores around every phase."""
 
     def __getitem__(self, name: str) -> int:
-        if name not in KERNELS:
+        if name not in COUNTED:
             raise KeyError(name)
         return profiling.TOTALS.get("kernel." + name, 0)
 
     def __setitem__(self, name: str, value: int) -> None:
-        if name not in KERNELS:
+        if name not in COUNTED:
             raise KeyError(name)
         profiling.TOTALS["kernel." + name] = value
 
@@ -254,19 +270,29 @@ class KernelLaunches(collections.abc.MutableMapping):
         raise TypeError("the kernel counters cannot be removed")
 
     def __iter__(self):
-        return iter(KERNELS)
+        return iter(COUNTED)
 
     def __len__(self) -> int:
-        return len(KERNELS)
+        return len(COUNTED)
 
 
 LAUNCHES = KernelLaunches()
+
+
+def launches_of(**n: int) -> dict:
+    """A launch count over every kernel in `COUNTED`: `n` where given, else 0."""
+    return {k: n.get(k, 0) for k in COUNTED}
+
+
 # per library: (kernel, exported occupancy query, its leading arguments)
 OCCUPANCY = {"raster_fwd": [("raster_fwd", "raster_fwd_occupancy", ())],
              "raster_bwd": [("raster_bwd", "raster_bwd_occupancy", (0,)),
                             ("raster_bwd_entries", "raster_bwd_occupancy", (1,))],
              "segsum": [("segsum@c=10", "segsum_occupancy", (10,)),
-                        ("segsum@c=other", "segsum_occupancy", (0,))]}
+                        ("segsum@c=other", "segsum_occupancy", (0,))],
+             "ssim": [("ssim_fwd", "ssim_occupancy", (0,)),
+                      ("ssim_fwd@mask", "ssim_occupancy", (1,)),
+                      ("ssim_bwd", "ssim_occupancy", (2,))]}
 # the adversarial cull scene: opacities near 1/255, needle conics up to 1:1000
 CULL = (256, 160, 1500)
 
@@ -797,7 +823,7 @@ def compare_routes(name: str, bins, attrs, bg, W, H, cots) -> dict:
     torch.cuda.synchronize()
     launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
     LAUNCHES.update(before)
-    check(launched == {"raster_fwd": 3, "raster_bwd": 3, "segsum": 2},
+    check(launched == launches_of(raster_fwd=3, raster_bwd=3, segsum=2),
           f"{name}: route comparison launched {launched}")
     check(bool(torch.isfinite(by_sort).all()), f"{name}: sort-route gradients not finite")
     errs = group_errors(by_sort, atomic)
@@ -848,8 +874,9 @@ def build_kernels(root: str) -> None:
     """One nvcc per source, all started together; then each kernel's
     resident blocks per SM, from the occupancy query its source exports."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    sources = (*KERNELS, "ssim")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(_build.build, sources)))
     seconds = time.perf_counter() - t0
     for name, lib_path in libs.items():
         ptxas = lib_path.with_suffix(".log").read_text().strip().splitlines()
@@ -865,6 +892,135 @@ def build_kernels(root: str) -> None:
         emit("build", kernel=name, seconds=seconds, library=os.path.relpath(lib_path, root),
              ptxas=[ln for ln in ptxas if "registers" in ln or "spill" in ln or "smem" in ln],
              resident_blocks_per_sm=blocks)
+
+
+def library_ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """SSIM as the port took it before csrc/ssim.cu: five depthwise 11x11
+    `F.conv2d` calls and an elementwise chain, differentiated by autograd
+    (three more convolutions in the backward). The yardstick `library_ms`;
+    the port never calls it."""
+    window = torch.as_tensor(image_losses._gaussian_window(11, 1.5), device=img1.device)
+
+    def conv(x):
+        return image_losses._depthwise_conv(x, window, 5)
+
+    mu1, mu2 = conv(img1), conv(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1**2, mu2**2, mu1 * mu2
+    sigma1_sq = conv(img1 * img1) - mu1_sq
+    sigma2_sq = conv(img2 * img2) - mu2_sq
+    sigma12 = conv(img1 * img2) - mu1_mu2
+    c1, c2 = image_losses.C1, image_losses.C2
+    return torch.mean(((2 * mu1_mu2 + c1) * (2 * sigma12 + c2))
+                      / ((mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)))
+
+
+def ssim_phase(dev) -> dict:
+    """The SSIM kernels at 4032x3024x3, as the training loss takes them (only
+    the render's gradient): the loss and the gradient against the plain
+    versions on the card, with a mask too, a bitwise repeat, the launches of
+    one loss and its gradient; then the times of the forward (with the maps,
+    and under no_grad without them) and the backward by CUDA events and by
+    the profiler's device time, beside their byte bounds, the plain
+    versions' and the library route's (`library_ssim`). Returns each
+    kernel's row of the kernel table."""
+    W, H = SSIM_SIZE
+    rng = np.random.default_rng(21)
+    y_np = rng.uniform(size=(3, H, W)).astype(np.float32)
+    x_np = np.clip(y_np + rng.normal(scale=0.1, size=y_np.shape), 0, 1).astype(np.float32)
+    x, y = torch.tensor(x_np, device=dev), torch.tensor(y_np, device=dev)
+    mask = torch.tensor((rng.uniform(size=(H, W)) > 0.3).astype(np.float32), device=dev)
+    n = x.numel()
+    one = torch.ones((), device=dev)
+    counted = dict(LAUNCHES)
+
+    def kernel(m=None):
+        xg = x.clone().requires_grad_(True)
+        loss = ssim(xg, y, mask=m)
+        (g,) = torch.autograd.grad(loss, xg)
+        return loss.detach(), g
+
+    def plain(m=None):
+        loss, (a1, _, b, c) = image_losses.ssim_fwd_plain(x, y, m, 11, (True, False))
+        return loss, image_losses.ssim_bwd_plain(a1, b, c, x, y, one)
+
+    errs = {}
+    for name, m in (("unmasked", None), ("masked", mask)):
+        before = dict(LAUNCHES)
+        got = kernel(m)
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in COUNTED}
+        check(launched == launches_of(ssim_fwd=1, ssim_bwd=1), f"SSIM launches {launched}")
+        want = plain(m)
+        loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        grad_rel = float((got[1] - want[1]).abs().max()) / float(want[1].abs().max())
+        check(loss_rel <= SSIM_LOSS_REL, f"SSIM {name} loss vs plain: {loss_rel}")
+        check(grad_rel <= SSIM_GRAD_REL, f"SSIM {name} gradient vs plain: {grad_rel} of max|g|")
+        again = kernel(m)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"SSIM {name}: repeat differs")
+        errs[name] = {"loss_rel": loss_rel, "grad_rel_of_max": grad_rel,
+                      "loss_abs_err": abs(float(got[0]) - float(want[0])),
+                      "grad_max_abs_err": float((got[1] - want[1]).abs().max())}
+    del got, want, again
+
+    grads = (True, False)
+    _, (a1, _, b, c) = image_losses.ssim_fwd(x, y, None, 11, grads)
+
+    def fwd():
+        image_losses.ssim_fwd(x, y, None, 11, grads)
+
+    def fwd_nograd():
+        image_losses.ssim_fwd(x, y, None, 11, (False, False))
+
+    def bwd():
+        image_losses.ssim_bwd(a1, b, c, x, y, one)
+
+    xl = x.clone().requires_grad_(True)
+    lib_loss = library_ssim(xl, y)
+    times = {
+        "fwd": cuda_times(fwd), "fwd_nograd": cuda_times(fwd_nograd), "bwd": cuda_times(bwd),
+        "plain_fwd": cuda_times(lambda: image_losses.ssim_fwd_plain(x, y, None, 11, grads)),
+        "plain_bwd": cuda_times(lambda: image_losses.ssim_bwd_plain(a1, b, c, x, y, one)),
+        "library_fwd": cuda_times(lambda: library_ssim(xl, y)),
+        "library_bwd": cuda_times(lambda: torch.autograd.grad(lib_loss, xl, retain_graph=True)),
+    }
+    device_ms = {"fwd": kernel_device_ms(fwd), "fwd_nograd": kernel_device_ms(fwd_nograd),
+                 "bwd": kernel_device_ms(bwd)}
+    del lib_loss
+
+    def peak_mb(loss_fn) -> float:
+        """Device memory a loss and its gradient take at their peak, over
+        what the inputs hold."""
+        xg = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.autograd.grad(loss_fn(xg, y), xg)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+
+    peak = {"kernel_mb": peak_mb(ssim), "library_mb": peak_mb(library_ssim)}
+    LAUNCHES.update(counted)  # comparison and timing launches do not count
+    bounds = {"ssim_fwd": bound_ms(SSIM_BYTES_FWD * n, SSIM_OPS_FWD * n),
+              "ssim_bwd": bound_ms(SSIM_BYTES_BWD * n, SSIM_OPS_BWD * n)}
+    rows = {}
+    for name, key in (("ssim_fwd", "fwd"), ("ssim_bwd", "bwd")):
+        (bound, by) = bounds[name]
+        err = "grad_max_abs_err" if key == "bwd" else "loss_abs_err"
+        rows[name] = {"max_abs_err": errs["unmasked"][err],
+                      "ms": times[key]["median_ms"], "device_ms": device_ms[key],
+                      "plain_ms": times[f"plain_{key}"]["median_ms"], "bound_ms": bound,
+                      "bound_by": by, "library_ms": times[f"library_{key}"]["median_ms"]}
+    emit("ssim", size=[3, H, W], errors=errs, times=times, device_ms=device_ms, rows=rows,
+         peak_memory=peak, image_mb=n * 4 / 2**20,
+         bound_ms_total=bounds["ssim_fwd"][0] + bounds["ssim_bwd"][0])
+    return rows
+
+
+def bound_ms(bytes_moved: float, ops: float) -> tuple:
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    by_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
+    by_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def serving_phases(dev, root) -> dict:
@@ -930,7 +1086,7 @@ def serving_phases(dev, root) -> dict:
         alpha = out.rendered_alpha
         check(bool((alpha >= 0).all() and (alpha <= 1).all()), f"view {i}: alpha outside [0, 1]")
         check(float(alpha.mean()) > 0.05, f"view {i}: almost nothing rendered")
-    check(launches == {"raster_fwd": VIEWS, "raster_bwd": 0, "segsum": 0},
+    check(launches == launches_of(raster_fwd=VIEWS),
           f"serving launched {launches} for {VIEWS} views")
     emit("main_path", views=len(outs), width=W1, height=H1, gaussians=model.total,
          alive=model.num_ray + int(model.bg_alive.sum()), launches=launches,
@@ -1049,7 +1205,8 @@ def training_phase(dev, bwd_kernel_t: dict) -> dict:
     launches = dict(LAUNCHES)
     loss_after = view_loss(0)
 
-    check(launches == {"raster_fwd": TRAIN_STEPS, "raster_bwd": TRAIN_STEPS, "segsum": 0},
+    check(launches == launches_of(raster_fwd=TRAIN_STEPS, raster_bwd=TRAIN_STEPS,
+                                  ssim_fwd=TRAIN_STEPS, ssim_bwd=TRAIN_STEPS),
           f"training launched {launches} in {TRAIN_STEPS} steps")
     for it, m in enumerate(metrics, 1):
         for key in ("loss", "l1", "match_loss"):
@@ -1239,7 +1396,7 @@ def pipeline_phase(dev) -> dict:
     emit("pipeline_main_stage", steps=PIPE_STEPS, launches=launches, run_host_s=run_s,
          view0_loss_before=loss_before, view0_loss_after=loss_after, log=log,
          adam_count=state.opt_state.count, optimization=PIPE_OPT)
-    check(launches == dict.fromkeys(KERNELS, PIPE_STEPS),
+    check(launches == dict.fromkeys(COUNTED, PIPE_STEPS),
           f"the 4K main stage launched {launches} in {PIPE_STEPS} iterations")
     check(all(math.isfinite(r[k]) for r in log for k in ("loss", "l1", "match_loss")),
           "a main-stage loss is not finite")
@@ -1621,8 +1778,9 @@ def two_process_gloo(dev, bundle, gts, cams, card: str) -> dict:
     check(all(math.isfinite(x) for x in a["losses"]), f"gloo losses {a['losses']}")
     check(a["bg_alive"] > 0 and a["bg_alive"] == b["bg_alive"], f"bg alive {a['bg_alive']}")
     for r in ranks:
-        want = {"raster_fwd": 1 + PAR_RUN_STEPS, "raster_bwd": 1 + PAR_RUN_STEPS,
-                "segsum": r["steps_by_sort"]}  # capacity growth may switch the route
+        steps = 1 + PAR_RUN_STEPS
+        want = launches_of(raster_fwd=steps, raster_bwd=steps, ssim_fwd=steps, ssim_bwd=steps,
+                           segsum=r["steps_by_sort"])  # capacity growth may switch the route
         check(r["launches"] == want, f"a gloo rank launched {r['launches']}, not {want}")
     emit("parallel_gloo", card=card, ranks=2, backend="gloo", tensors="cuda", views=[0, 1],
          step1_max_rel_err=step1_err, bitwise_equal_ranks=True, losses=a["losses"],
@@ -1632,7 +1790,7 @@ def two_process_gloo(dev, bundle, gts, cams, card: str) -> dict:
          run_s=[r["run_s"] for r in ranks], run_ms_per_iteration=[
              r["run_s"] * 1e3 / PAR_RUN_STEPS for r in ranks],
          wall_s=wall_s, launches=[r["launches"] for r in ranks])
-    return {k: a["launches"][k] + b["launches"][k] for k in KERNELS}
+    return {k: a["launches"][k] + b["launches"][k] for k in COUNTED}
 
 
 def slice_grads(proj, attrs, bg, W, H, cots, by_sort, slices=None):
@@ -1678,8 +1836,8 @@ def row_slices_phase(dev, card: str, name: str, scene: dict, W: int, H: int) -> 
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     LAUNCHES.update(before)
-    check(launches == {"raster_fwd": PAR_SLICES, "raster_bwd": PAR_SLICES,
-                       "segsum": PAR_SLICES if by_sort else 0},
+    check(launches == launches_of(raster_fwd=PAR_SLICES, raster_bwd=PAR_SLICES,
+                                  segsum=PAR_SLICES if by_sort else 0),
           f"{name}: {PAR_SLICES} slices launched {launches}")
     for key, a, b in zip(("color", "depth", "alpha"), sliced, whole):
         check(torch.equal(a, b), f"{name}: the slices' {key} differs from the whole image's")
@@ -1741,7 +1899,7 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
     bg = torch.zeros(3, device=dev)
     cfg = OptimizationConfig()
     leaves = hybrid_leaves(*HYBRID, seed=7)
-    counted = dict.fromkeys(KERNELS, 0)
+    counted = launches_of()
 
     # (a) DP at world size 1 against train_step: by the route by sort (no
     # atomics) every bit must agree; by the main path's atomic route the
@@ -1750,17 +1908,17 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
             for route, rcfg in (("sort", RasterizerConfig(entry_budget=raster.SORT_ROUTE_MIN_L)),
                                 ("atomic", RasterizerConfig()))}
     sort_dp, sort_one = runs["sort"]["dp"], runs["sort"]["single"]
-    check(sort_dp["launches"] == sort_one["launches"] == dict.fromkeys(KERNELS, PAR_STEPS),
+    check(sort_dp["launches"] == sort_one["launches"] == dict.fromkeys(COUNTED, PAR_STEPS),
           f"by sort: DP launched {sort_dp['launches']}, train_step {sort_one['launches']}")
     check(sort_dp["losses"] == sort_one["losses"],
           f"by sort: DP losses {sort_dp['losses']}, train_step {sort_one['losses']}")
     for key, t in sort_one["final"].items():
         check(torch.equal(sort_dp["final"][key], t), f"by sort: DP and train_step differ in {key}")
     dp_run, one = runs["atomic"]["dp"], runs["atomic"]["single"]
-    check(dp_run["launches"] == one["launches"] == {"raster_fwd": PAR_STEPS,
-                                                    "raster_bwd": PAR_STEPS, "segsum": 0},
+    check(dp_run["launches"] == one["launches"] == launches_of(
+              raster_fwd=PAR_STEPS, raster_bwd=PAR_STEPS, ssim_fwd=PAR_STEPS, ssim_bwd=PAR_STEPS),
           f"DP launched {dp_run['launches']}, train_step {one['launches']}")
-    for k in KERNELS:
+    for k in COUNTED:
         counted[k] += dp_run["launches"][k]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dp_run["losses"], one["losses"]))
     check(loss_rel <= PAR_LOSS_REL, f"DP vs train_step loss: {loss_rel} relative")
@@ -1818,7 +1976,7 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
                                        ("bench_dense", DENSE, (-5.5, -4.0))):
         scene = bench_scene(W, H, N, 0, log_scale)
         slices[name] = row_slices_phase(dev, card, name, scene, W, H)
-        for k in KERNELS:
+        for k in COUNTED:
             counted[k] += slices[name]["launches"][k]
         del scene
     W, H, _ = FULL
@@ -1839,13 +1997,13 @@ def parallel_phase(dev, card: str, train_ctx: dict) -> dict:
         torch.cuda.synchronize()
         sharded_launches = dict(LAUNCHES)
         LAUNCHES.update(before)
-    check(sharded_launches == {"raster_fwd": 2, "raster_bwd": 0, "segsum": 0},
+    check(sharded_launches == launches_of(raster_fwd=2),
           f"the sharded renders launched {sharded_launches}")
     for label, got in (("rasterize_tile_sharded", got_tiles), ("render_sharded", got_prim)):
         for key, a, b in zip(("color", "depth", "alpha"), got[:3], want):
             check(torch.equal(a, b), f"{label} {key} differs from rasterize")
         check(int(got[3]) == 0, f"{label} overflow {int(got[3])}")
-    for k in KERNELS:
+    for k in COUNTED:
         counted[k] += sharded_launches[k]
     emit("parallel_sharded_renders", card=card, group=f"{dist.get_backend(group)}, world 1",
          width=W, height=H,
@@ -1945,8 +2103,7 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
     del bundle, z0
 
     # the counted run: train, resume, render
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    LAUNCHES.update(launches_of())
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train_args = ["-s", scene_dir, "-r", str(CLI_RESOLUTION), "--eval", "--no_tensorboard",
@@ -2009,12 +2166,14 @@ def cli_phase(dev, card: str, tmp: str) -> dict:
     check(os.path.exists(os.path.join(model_dir, "train", "point_cloud_color.ply")),
           "render CLI wrote no point_cloud_color.ply")
 
-    # launches over the counted run: a forward and a backward per training
-    # iteration, a forward per evaluated view (3 test + 3 train views at each
-    # evaluation) and per rendered view; the atomic route, so no segment sum
+    # launches over the counted run: a forward and a backward of the
+    # compositing and of SSIM per training iteration, a forward per evaluated
+    # view (3 test + 3 train views at each evaluation, which takes no SSIM)
+    # and per rendered view; the atomic route, so no segment sum
     iters = CLI_ITERATIONS + (CLI_RESUME_TO - CLI_CHECKPOINT)
     rendered = len(CLI_TEST_ITERATIONS) * 6 + 6
-    want = {"raster_fwd": iters + rendered, "raster_bwd": iters, "segsum": 0}
+    want = launches_of(raster_fwd=iters + rendered, raster_bwd=iters, ssim_fwd=iters,
+                       ssim_bwd=iters)
     check(launches == want, f"CLI launches {launches}, expected {want}")
 
     # the render CLI's test renders == 8-bit render_model on main's model
@@ -2122,14 +2281,13 @@ class Launches:
     block whose launches (comparisons) are taken back out."""
 
     def __init__(self):
-        for name in KERNELS:
-            LAUNCHES[name] = 0
+        LAUNCHES.update(launches_of())
         self.mark = dict(LAUNCHES)
 
     def step(self, label: str, want: dict) -> None:
         torch.cuda.synchronize()
-        got = {k: LAUNCHES[k] - self.mark[k] for k in KERNELS}
-        full = {k: want.get(k, 0) for k in KERNELS}
+        got = {k: LAUNCHES[k] - self.mark[k] for k in COUNTED}
+        full = launches_of(**want)
         check(got == full, f"eval {label}: launches {got}, expected {full}")
         self.mark = dict(LAUNCHES)
 
@@ -2215,21 +2373,49 @@ def viewer_client(port: int, request: dict, n_bytes: int, out: dict) -> None:
         out["verify"] = recv_exact(sock, n).decode()
 
 
-def aux_losses_on(dev, inputs: dict, sample_idx: torch.Tensor, dtype=torch.float32) -> dict:
+def margin_on(a: torch.Tensor, b: torch.Tensor, patch_mask: torch.Tensor, margin: float,
+              selection=None) -> tuple:
+    """`aux.margin_l2_loss(a, b, patch_mask, margin)` and the elements it
+    selects; where `selection` is given, the loss over that selection
+    instead (the same masked mean of the squared error). An element within
+    rounding of the margin may fall on either side of it on each device, so
+    the card and the CPU are compared over one selection: the card's."""
+    loss, sel = aux.margin_l2_loss(a, b, patch_mask, margin, return_mask=True)
+    if selection is not None:
+        w = selection.to(a.device, a.dtype)
+        err = a - b
+        loss = torch.sum(err * err * w) / torch.clamp(torch.sum(w), min=1.0)
+    return loss, sel
+
+
+def aux_losses_on(dev, inputs: dict, sample_idx: torch.Tensor, dtype=torch.float32,
+                  selections=None) -> tuple:
     """{name: (value, {input: gradient})} of every `losses/aux.py` function
-    on `inputs` (copied to `dev` in `dtype` as leaves that require grad)."""
+    on `inputs` (copied to `dev` in `dtype` as leaves that require grad),
+    and {name: selection} of the two margin losses (`margin_l2_loss` and
+    `patch_norm_mse_loss`, which is `margin_l2_loss` over normalized
+    patches); where `selections` is given, the margin losses are taken over
+    those selections (`margin_on`)."""
     x = {k: v.detach().to(dev, dtype).requires_grad_() for k, v in inputs.items()}
     fore = (x["alpha0"] < 0.5).to(dtype)
+    fore_patches = aux.patchify(fore, AUX_PATCH).sum(1) < AUX_PATCH ** 2 / 3
+    shared = selections or {}
+
+    def norm(depth):
+        return aux._normalize_patches(aux.patchify(depth, AUX_PATCH))
+
     calls = {
         "get_smooth_loss": (lambda: aux.get_smooth_loss(x["depth0"][0, 0], x["img0"]),
                             ("depth0", "img0")),
         "patchify": (lambda: aux.patchify(x["depth0"], AUX_PATCH).square().mean(), ("depth0",)),
-        "margin_l2_loss": (lambda: aux.margin_l2_loss(
+        "margin_l2_loss": (lambda: margin_on(
             aux.patchify(x["depth0"], AUX_PATCH), aux.patchify(x["depth1"], AUX_PATCH),
-            aux.patchify(fore, AUX_PATCH).sum(1) < AUX_PATCH ** 2 / 3, 0.05),
-            ("depth0", "depth1")),
-        "patch_norm_mse_loss": (lambda: aux.patch_norm_mse_loss(
-            x["depth0"], x["depth1"], fore, AUX_PATCH), ("depth0", "depth1")),
+            fore_patches, 0.05, shared.get("margin_l2_loss")), ("depth0", "depth1")),
+        # composed from its parts, as the card's selection needs; held below
+        # against `aux.patch_norm_mse_loss` itself
+        "patch_norm_mse_loss": (lambda: margin_on(
+            norm(x["depth0"]), norm(x["depth1"]), fore_patches, 0.2,
+            shared.get("patch_norm_mse_loss")), ("depth0", "depth1")),
         "ranking_loss": (lambda: aux.ranking_loss(
             x["depth0"], x["depth1"], AUX_PATCH, sample_idx=sample_idx.to(dev)), ("depth0",)),
         "cons_loss": (lambda: aux.cons_loss(x["depth0"], x["depth1"], AUX_CONS_PATCH, 1e-3),
@@ -2238,12 +2424,18 @@ def aux_losses_on(dev, inputs: dict, sample_idx: torch.Tensor, dtype=torch.float
             x["img_v"], x["depth_v"], x["c2w_v"], x["intrs"], x["w2cs"], x["colors"],
             x["alpha_v"][0] > 0.5), ("img_v", "depth_v", "colors")),
     }
-    out = {}
+    out, sels = {}, {}
     for name, (fn, wrt) in calls.items():
         value = fn()
+        if isinstance(value, tuple):
+            value, sels[name] = value[0], value[1].cpu()
         grads = torch.autograd.grad(value, [x[k] for k in wrt])
         out[name] = (float(value.detach()), {k: g.cpu() for k, g in zip(wrt, grads)})
-    return out
+    if selections is None:
+        own = float(aux.patch_norm_mse_loss(x["depth0"], x["depth1"], fore, AUX_PATCH).detach())
+        check(own == out["patch_norm_mse_loss"][0], f"patch_norm_mse_loss {own} vs its "
+              f"composition {out['patch_norm_mse_loss'][0]} on {dev}")
+    return out, sels
 
 
 def eval_phase(dev, card: str, tmp: str, cli: dict) -> dict:
@@ -2284,7 +2476,7 @@ def eval_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     metrics_lpips_s = time.perf_counter() - t0
     with_lpips = read_results(model_dir)
     check_results_schema(*with_lpips, views=len(test_cams), lpips=True)
-    counts.step("metrics", {})
+    counts.step("metrics", {"ssim_fwd": 2 * len(test_cams)})  # two runs, SSIM per test view
     # each view's SSIM and LPIPS on the card against the CPU, and their times
     test_dir = os.path.join(model_dir, "test", method)
     t0 = time.perf_counter()
@@ -2295,7 +2487,7 @@ def eval_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     ssim_err, lpips_err, ssim_s, lpips_s = [], [], [], []
     for name, r, g in zip(names, renders, gts):
         pair = {d: (torch.tensor(r, device=d), torch.tensor(g, device=d)) for d in (dev, "cpu")}
-        with torch.no_grad():
+        with counts.aside(), torch.no_grad():  # comparison launches do not count
             t0 = time.perf_counter()
             card_ssim = float(ssim(*pair[dev]))
             ssim_s.append(time.perf_counter() - t0)
@@ -2367,15 +2559,18 @@ def eval_phase(dev, card: str, tmp: str, cli: dict) -> dict:
                             "--iterations", str(CLI_ITERATIONS), "--device", DEVICE])
     skip_s = time.perf_counter() - t0
     check(skip == no_lpips[0], f"acceptance --skip_train {skip} vs the metrics CLI {no_lpips[0]}")
-    counts.step("acceptance --skip_train", {"raster_fwd": 2 * len(test_cams)})
+    counts.step("acceptance --skip_train", {"raster_fwd": 2 * len(test_cams),
+                                            "ssim_fwd": len(test_cams)})
     t0 = time.perf_counter()
     synthetic = acceptance.main(["--synthetic", "--device", DEVICE])
     synthetic_s = time.perf_counter() - t0
     (syn_method, syn), = synthetic.items()
     check(math.isfinite(syn["PSNR"]) and syn["PSNR"] > ACCEPT_MIN_PSNR,
           f"acceptance --synthetic PSNR {syn['PSNR']}")
-    # 10 views written, 60 iterations, an evaluation (2 test + 3 train views), 5 renders
-    counts.step("acceptance --synthetic", {"raster_fwd": 10 + 60 + 5 + 5, "raster_bwd": 60})
+    # 10 views written, 60 iterations, an evaluation (2 test + 3 train views), 5
+    # renders, SSIM in each iteration and in the metrics of the 2 test renders
+    counts.step("acceptance --synthetic", {"raster_fwd": 10 + 60 + 5 + 5, "raster_bwd": 60,
+                                           "ssim_fwd": 60 + 2, "ssim_bwd": 60})
     emit("eval_acceptance", card=card, skip_train_s=skip_s, synthetic_s=synthetic_s,
          synthetic=syn, synthetic_method=syn_method)
 
@@ -2456,11 +2651,14 @@ def eval_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     for dtype in (torch.float32, torch.float64):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        card_aux = aux_losses_on(dev, inputs, sample_idx, dtype)
+        card_aux, card_sel = aux_losses_on(dev, inputs, sample_idx, dtype)
         torch.cuda.synchronize()
         aux_s = time.perf_counter() - t0
-        cpu_aux = aux_losses_on("cpu", inputs, sample_idx, dtype)
-        errs = {"card_s": aux_s}
+        # the margin losses over the card's selection on both sides
+        cpu_aux, cpu_sel = aux_losses_on("cpu", inputs, sample_idx, dtype, card_sel)
+        errs = {"card_s": aux_s, "selected": {k: int(v.sum()) for k, v in card_sel.items()},
+                "selection_differs": {k: int((v != cpu_sel[k]).sum())
+                                      for k, v in card_sel.items()}}
         for name, (value, grads) in card_aux.items():
             want_v, want_g = cpu_aux[name]
             check(math.isfinite(value) and value != 0.0, f"aux {name}: value {value}")
@@ -2563,8 +2761,9 @@ def main() -> int:
     emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build every kernel from the checkout's sources
+    # 2. build every kernel from the checkout's sources; the SSIM kernels at 4032x3024
     build_kernels(root)
+    ssim_rows = ssim_phase(dev)
 
     # 3. the segment-sum kernel on the adversarial key layouts at the route's
     # width (10 columns), and on two of them at the narrowest and the widest
@@ -2626,19 +2825,29 @@ def main() -> int:
     # acceptance run, 20 depths, ...)
     launches = {name: serving["serving_launches"][name] + train_launches[name]
                 + pipe["launches"][name] + par["launches"][name] + cli["launches"][name]
-                + ev["launches"][name] for name in KERNELS}
+                + ev["launches"][name] for name in COUNTED}
     rank_kernels(serving, train_launches, pipe, cli, ev)
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    table = [{
         "name": name,
         "route": "cuda",
         "source": f"scgaussian_tpu_torch/csrc/{name}.cu",
         "replaces": REPLACES[name],
         "launches": launches[name],
-        **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
-    } for name in KERNELS]}), flush=True)
+        **{k: rows[name][k] for k in fields},
+    } for name in KERNELS]
+    # SSIM's kernels, timed at 4032x3024; launched on the training and evaluation paths
+    table += [{
+        "name": name,
+        "route": "cuda",
+        "source": "scgaussian_tpu_torch/csrc/ssim.cu",
+        "replaces": "none (XLA convolutions, scgaussian_tpu/losses/image.py:74-104)",
+        "launches": launches[name],
+        **{k: ssim_rows[name][k] for k in fields},
+    } for name in SSIM_KERNELS]
+    print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Each source is compiled on first use into `build/kernels/` at the root of
 the checkout, as a shared library with a plain C interface, named by a hash
-of its source, the headers under `csrc/` and the flags, so an edited source
-or header rebuilds and an unchanged one loads from the previous build.
+of its source, the `csrc/` headers it includes and the flags, so an edited
+source or included header rebuilds and an unchanged one loads from the
+previous build. The renderer's kernels and the SSIM loss's share this.
 Nothing here runs at import time.
 
 The compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
@@ -16,13 +17,14 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,8 +46,10 @@ def nvcc_path() -> str:
 def build(name: str) -> Path:
     """Compile `csrc/<name>.cu` unless its build is current; returns the
     library's path. Raises with the compiler's output when nvcc fails."""
-    # the source, every header beside it (a source may include them) and the flags
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    # the source, the headers beside it that it includes, and the flags
+    source = (CSRC / f"{name}.cu").read_bytes()
+    headers = sorted(set(re.findall(rb'#include\s+"([^"/]+\.cuh)"', source)))
+    src = b"".join([source, *((CSRC / h.decode()).read_bytes() for h in headers)])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():

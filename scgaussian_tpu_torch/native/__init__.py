@@ -3,7 +3,7 @@
 Port of the JAX package's `native/` loader. `colmap_fast.cpp` is a copy of
 its source. The library is built on first use into `build/native/` at the
 root of the checkout, named by a hash of its source and the flags (as
-`renderer/_build.py` names the CUDA libraries), so an edited source
+`_build.py` names the CUDA libraries), so an edited source
 rebuilds and nothing is written inside the package. `load_library(name)`
 returns the ctypes library, or None when no compiler is present or the
 build fails: callers keep a pure-Python path for that case. Nothing here

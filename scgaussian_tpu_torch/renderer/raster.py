@@ -47,8 +47,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from scgaussian_tpu_torch import _build
 from scgaussian_tpu_torch.config import RasterizerConfig
-from scgaussian_tpu_torch.renderer import _build
 from scgaussian_tpu_torch.renderer.binning import TileBins, bin_gaussians, default_entry_budget
 from scgaussian_tpu_torch.renderer.oracle import ALPHA_MAX, ALPHA_MIN, T_EPS
 from scgaussian_tpu_torch.renderer.project import ProjectedGaussians

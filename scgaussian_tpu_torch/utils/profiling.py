@@ -219,9 +219,10 @@ def span(name: str):
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name`: to `TOTALS` always, and to the
     window's counts while a profiler records. The port's counters:
-    `kernel.raster_fwd`, `kernel.raster_bwd` and `kernel.segsum` (launches
-    of the hand-written kernels; both backward epilogues count as
-    `kernel.raster_bwd`, both segment-sum forms as `kernel.segsum`),
+    `kernel.raster_fwd`, `kernel.raster_bwd`, `kernel.segsum`,
+    `kernel.ssim_fwd` and `kernel.ssim_bwd` (launches of the hand-written
+    kernels; both backward epilogues count as `kernel.raster_bwd`, both
+    segment-sum forms as `kernel.segsum`),
     `bin.entries` (tile entries binned) and `host_syncs` (reads of a device
     value to the host on the hot path)."""
     global _fresh

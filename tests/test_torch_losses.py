@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from scgaussian_tpu import losses as jl
 from scgaussian_tpu.model import matches as jmatches
 from scgaussian_tpu_torch import losses as tl
+from scgaussian_tpu_torch.losses.image import SSIMFunction
 from scgaussian_tpu_torch.model import matches as tmatches
 from synthetic_scene import make_synthetic  # tests/ is on sys.path under pytest
 from test_torch_core import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
@@ -47,23 +48,53 @@ def test_pixel_losses_match_jax():
     assert tl.psnr(ta, tb).shape == (3, 1)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_ssim_matches_jax(masked):
-    """Values at 1e-6 and gradients at 1e-4 * max|g| (fp32 convolutions,
-    summed in another order)."""
+@pytest.mark.parametrize("masked, grads", [
+    pytest.param(False, "img1", id="False"),
+    pytest.param(True, "img1", id="True"),
+    pytest.param(False, "both", id="False-both"),
+    pytest.param("per_channel", "both", id="per_channel-both"),
+])
+def test_ssim_matches_jax(masked, grads):
+    """The CPU route (`SSIMFunction` over the plain forward and its
+    hand-derived backward) against JAX's `ssim` and `jax.value_and_grad`:
+    values at 1e-6 and gradients at 1e-4 * max|g| (fp32 convolutions, summed
+    in another order), for img1's gradient alone (the training path) and for
+    both images', with a mask of one plane or one per channel, and both
+    values of `size_average`."""
     a, b = images(1)
     mask = (np.random.default_rng(2).uniform(size=a.shape[1:]) > 0.3).astype(np.float32)
+    if masked == "per_channel":
+        mask = (np.random.default_rng(2).uniform(size=a.shape) > 0.3).astype(np.float32)
     jkw = dict(mask=jnp.asarray(mask)) if masked else {}
     tkw = dict(mask=torch.tensor(mask)) if masked else {}
-    ref, jg = jax.value_and_grad(lambda x: jl.ssim(x, jnp.asarray(b), **jkw))(jnp.asarray(a))
+    both = grads == "both"
+    ref, jg = jax.value_and_grad(lambda x, y: jl.ssim(x, y, **jkw), argnums=(0, 1) if both else 0)(
+        jnp.asarray(a), jnp.asarray(b))
     ta = torch.tensor(a, requires_grad=True)
-    got = tl.ssim(ta, torch.tensor(b), **tkw)
-    (tg,) = torch.autograd.grad(got, ta)
+    tb = torch.tensor(b, requires_grad=both)
+    got = tl.ssim(ta, tb, **tkw)
+    assert type(got.grad_fn).__name__ == "SSIMFunctionBackward"
+    tg = torch.autograd.grad(got, (ta, tb) if both else (ta,))
     close(got, ref)
-    jg = np.asarray(jg)
-    np.testing.assert_allclose(tg.numpy(), jg, atol=1e-4 * np.abs(jg).max())
-    close(tl.ssim(ta, torch.tensor(b), size_average=False, **tkw),
-          jl.ssim(jnp.asarray(a), jnp.asarray(b), size_average=False, **jkw))
+    for t, j in zip(tg, jg if both else (jg,)):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, atol=1e-4 * np.abs(j).max())
+    for size_average in (True, False):
+        close(tl.ssim(ta, tb, size_average=size_average, **tkw),
+              jl.ssim(jnp.asarray(a), jnp.asarray(b), size_average=size_average, **jkw))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_ssim_function_gradcheck(masked):
+    """float64 `gradcheck` of `SSIMFunction`'s hand-derived backward on a
+    ragged 3 x 13 x 9 image: the 11-px window is wider than the image, so
+    the zero padding takes part everywhere."""
+    rng = np.random.default_rng(11)
+    a = torch.tensor(rng.uniform(0, 1, (3, 13, 9)), requires_grad=True)
+    b = torch.tensor(rng.uniform(0, 1, (3, 13, 9)), requires_grad=True)
+    mask = torch.tensor((rng.uniform(size=(13, 9)) > 0.3).astype(np.float64)) if masked else None
+    assert torch.autograd.gradcheck(
+        lambda x, y: SSIMFunction.apply(x, y, mask, 11), (a, b))
 
 
 def test_ssim_at_most_one_on_flat_images():

@@ -47,7 +47,7 @@ storing Gaussian-major, then `route`); `abl:seg_gather` times
 inverse permutation) and `route_gather_total` (the backward storing each
 entry's row at its own slot, then `route_gather`).
 
-Each built variant is compiled with nvcc (the flags of renderer/_build.py)
+Each built variant is compiled with nvcc (the flags of _build.py)
 under tmp/kernel_ab/. The script makes chip_smoke.py's 1080p main view and
 the 4K pipeline's view 0 (setup_from_matches and 12 main-stage iterations),
 with the per-entry backward rows of this checkout's kernel, holds every
@@ -76,10 +76,11 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from scgaussian_tpu_torch import _build  # noqa: E402
 from scgaussian_tpu_torch.config import OptimizationConfig, TrainExtras  # noqa: E402
 from scgaussian_tpu_torch.model.gaussians import model_from_numpy  # noqa: E402
 from scgaussian_tpu_torch.model.matches import init_zvals  # noqa: E402
-from scgaussian_tpu_torch.renderer import _build, raster  # noqa: E402
+from scgaussian_tpu_torch.renderer import raster  # noqa: E402
 from scgaussian_tpu_torch.renderer.binning import bin_gaussians  # noqa: E402
 from scgaussian_tpu_torch.train.pipeline import run_main_stage, setup_from_matches  # noqa: E402
 
